@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so``: ``nvcc`` for
 ``sm_90a`` with a plain C interface, loaded with ``ctypes``. The hash covers
-the source and the flags, so an edited source is rebuilt and an unchanged one
-is reused. ``build()`` raises with the compiler's output if nvcc fails.
+the source, every header beside it (``csrc/*.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+``build()`` raises with the compiler's output if nvcc fails.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -36,7 +37,9 @@ def sources() -> list[str]:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -53,17 +56,19 @@ def _nvcc() -> str:
     return str(path)
 
 
-def build(names: list[str] | None = None) -> list[str]:
+def build(names: list[str] | None = None) -> dict[str, str]:
     """Compile every named source (default: all) whose library is missing.
 
-    Returns the names that were compiled. nvcc writes a temporary file that
-    is renamed into place, so two processes building at once never load a
-    half-written library.
+    Returns the compiler's output (ptxas's registers, spills and shared
+    memory of each kernel) by the name of each source it compiled. nvcc
+    writes a temporary file that is renamed into place, so two processes
+    building at once never load a half-written library.
     """
     names = sources() if names is None else names
     todo = [n for n in names if not library_path(n).is_file()]
+    logs: dict[str, str] = {}
     if not todo:
-        return []
+        return logs
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = _nvcc()
     for name in todo:
@@ -78,7 +83,8 @@ def build(names: list[str] | None = None) -> list[str]:
             raise BuildError(f"{name}.cu (nvcc exit {proc.returncode}):\n"
                              f"{proc.stdout}")
         os.replace(tmp, out)
-    return todo
+        logs[name] = proc.stdout
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

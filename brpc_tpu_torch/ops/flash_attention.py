@@ -5,12 +5,14 @@
 ``h // (Hq // Hkv)``, blocks clip to T and a T that does not divide them
 raises ``ValueError``. It is forward only, as the reference is.
 
-On CUDA tensors it launches the Hopper kernel of ``csrc/flash_attention.cu``
-(one block per 64 query rows and head; see the note there) and counts the
-launch in ``launches``. On CPU tensors it runs ``flash_attention_reference``,
-the plain PyTorch version of the same arithmetic. The CUDA kernel picks its
-own 64x64 tiles; ``block_q`` and ``block_k`` keep the contract and set the
-plain version's K/V tile.
+On CUDA tensors it launches a Hopper kernel of ``csrc/flash_attention.cu``
+and counts the launch in ``launches``: for bf16 the tensor-core kernel (TMA
+tiles, wgmma products, 128 query rows and 64-row K/V tiles, P fed to the
+P·V product as two bf16 halves), for f32 the SIMT kernel (64x64 tiles, f32
+FMAs); the note there says why. On CPU tensors it runs
+``flash_attention_reference``, the plain PyTorch version of the same
+arithmetic. The kernels pick their own tiles; ``block_q`` and ``block_k``
+keep the contract and set the plain version's K/V tile.
 """
 
 from __future__ import annotations

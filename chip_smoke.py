@@ -4,11 +4,13 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Every phase
 is fatal when it fails:
 
 1. the card's name and power limit; every kernel under
-   ``brpc_tpu_torch/csrc/`` built with nvcc, and the build time;
+   ``brpc_tpu_torch/csrc/`` built with nvcc, the build time, and each
+   kernel's registers and spills as ptxas reports them;
 2. each kernel against its plain PyTorch version at the shapes of the
    serving path (Llama-3-8B heads: Hq 32, Hkv 8, D 128), f32 and bf16,
-   causal and not, with its time from CUDA events beside its bound, the
-   plain version's time and one PyTorch library call for the same function;
+   causal and not, with its time from CUDA events and the host's time to
+   issue each call, its achieved TFLOP/s, its bound, the plain version's
+   time and one PyTorch library call for the same function;
 3. the tiny config's forward on the card against the same forward on the
    CPU, in f32 and bf16 compute;
 4. serving at Llama-3-8B width, all 32 layers, weights drawn from a seed:
@@ -82,26 +84,36 @@ def kernel_error(got, want):
     return err.max().item(), (err / bound).max().item()
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call, from CUDA events around ``iters`` calls."""
+def time_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
+    """Mean milliseconds per call over ``iters`` calls: (device time from
+    CUDA events, host time to issue the call). A device time close to the
+    host time is bound by the host's enqueue, not by the kernel."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_s = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, 1e3 * host_s / iters
+
+
+def attention_ops(b, t, causal):
+    """4·B·Hq·D operations for each (query, key) pair the mask keeps."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    return 4 * b * HQ * D * pairs
 
 
 def attention_bound(b, t, causal, dtype):
     """(ms, what bounds it): the operations of the (query, key) pairs the
     mask keeps against the peak for the dtype, or q, k, v and o moved once
     against the memory rate, whichever takes longer."""
-    pairs = t * (t + 1) // 2 if causal else t * t
-    ops = 4 * b * HQ * D * pairs
+    ops = attention_ops(b, t, causal)
     nbytes = (2 * b * t * HQ * D + 2 * b * t * HKV * D) * dtype.itemsize
     t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
@@ -125,8 +137,29 @@ def phase_build():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    built = _build.build()
-    print(f"build: {built} in {time.perf_counter() - t0:.3f} s")
+    logs = _build.build()
+    print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.3f} s")
+    for log in logs.values():
+        for line in ptxas_report(log):
+            print(f"ptxas {line}")
+
+
+def ptxas_report(log):
+    """One line per kernel from nvcc's ``-Xptxas -v`` output: registers,
+    spill bytes and static shared memory."""
+    lines, name, spills = [], None, ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name, spills = m.group(1), ""
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = f"spill_stores={m.group(1)} spill_loads={m.group(2)}"
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{name}: registers={m.group(1)} {spills} "
+                         f"static_smem={smem.group(1) if smem else 0}")
+            name = None
+    return lines
 
 
 def phase_kernels():
@@ -150,21 +183,24 @@ def phase_kernels():
                 check(of_tol <= 1.0,
                       f"flash_attention {name}: max |err| {err}, worst "
                       f"element at {of_tol} of its bound")
-                ms = time_ms(lambda: fa.flash_attention(q, k, v,
-                                                        causal=causal), 20)
-                plain_ms = time_ms(lambda: fa.flash_attention_reference(
+                ms, host_ms = time_ms(
+                    lambda: fa.flash_attention(q, k, v, causal=causal), 20)
+                plain_ms, _ = time_ms(lambda: fa.flash_attention_reference(
                     q, k, v, causal=causal), 3, warmup=1)
-                library_ms = time_ms(
+                library_ms, library_host_ms = time_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
                 bound_ms, bound_by = attention_bound(b, t, causal, dtype)
+                tflops = attention_ops(b, t, causal) / ms / 1e9
                 rows[(b, t, dtype, causal)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
                     library_ms=library_ms)
                 print(f"flash_attention {name}: max_abs_err={err:.3e} "
                       f"err_of_tolerance={of_tol:.4f} ms={ms:.4f} "
+                      f"host_ms={host_ms:.4f} tflops={tflops:.1f} "
                       f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                      f"library_host_ms={library_host_ms:.4f} "
                       f"bound_ms={bound_ms:.4f} "
                       f"({bound_by}) of_bound={bound_ms / ms:.4f}")
     return rows
@@ -270,7 +306,7 @@ def compare_dense(llama, params, cfg, tokens, flash_logits):
 
 
 # Kernel names by kind; the first pattern that matches names the kind.
-KERNEL_KINDS = (("flash_attention", re.compile(r"flash_fwd_kernel")),
+KERNEL_KINDS = (("flash_attention", re.compile(r"flash_fwd")),
                 ("matmul", re.compile(r"gemm|xmma|nvjet|cutlass|sm90_")),
                 ("copy_cast", re.compile(r"copy")),
                 ("other", re.compile(r"")))
@@ -327,7 +363,7 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "brpc_tpu_torch/csrc/flash_attention.cu",
         "replaces": "brpc_tpu/ops/flash_attention.py:71",
-        "launches": launches, **row}]}))
+        "design": "wgmma+tma, split-p", "launches": launches, **row}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

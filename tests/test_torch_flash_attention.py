@@ -131,6 +131,84 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
         "libflash_attention-")
 
 
+def test_library_hash_covers_headers(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    (csrc / "kern.cu").write_text('#include "common.cuh"\n')
+    (csrc / "common.cuh").write_text("// v1\n")
+    assert _build.sources() == ["kern"]
+    first = _build.library_path("kern")
+    assert first == _build.library_path("kern")
+    (csrc / "common.cuh").write_text("// v2\n")
+    second = _build.library_path("kern")
+    assert second != first
+    (csrc / "kern.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert _build.library_path("kern") not in (first, second)
+
+
+def _kernel_arithmetic(q, k, v, *, causal, split_p=True, block_k=64):
+    """The bf16 kernel's arithmetic in plain PyTorch: bf16 q·k products
+    summed in f32 and scaled only after the product, masked scores -1e30,
+    an online softmax in powers of two over K tiles of ``block_k`` (running
+    max m of the unscaled scores, p = 2**(s·c - m·c) with c =
+    D**-0.5·log2(e)), and P fed to the P·V product as bf16: split into
+    p_hi = bf16(p) and p_lo = bf16(p - p_hi), or rounded once."""
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    scale_log2 = d ** -0.5 * 1.4426950408889634
+    qf = q.float().view(b, t, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)
+    vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)
+    rows = torch.arange(t)[:, None]
+    m = torch.full((b, hkv, hq // hkv, t, 1), -torch.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, t, block_k):
+        x = qf @ kf[..., k0:k0 + block_k, :].transpose(-1, -2)
+        cols = torch.arange(k0, min(k0 + block_k, t))[None, :]
+        if causal:
+            x = torch.where(cols <= rows, x, -1e30)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * scale_log2)
+        p = torch.exp2(x * scale_log2 - m_new * scale_log2)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = p_hi @ vf[..., k0:k0 + block_k, :]
+        if split_p:
+            pv = pv + (p - p_hi).bfloat16().float() @ vf[..., k0:k0 + block_k, :]
+        acc = acc * alpha + pv
+        m = m_new
+    out = (acc / l.clamp_min(1e-20)).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq * d)
+
+
+def _of_bf16_step(got, want):
+    """Worst element's |got - want| over one bf16 step of the plain value,
+    2**-7 * max(|want|, 2**-4): the bound chip_smoke.py and the card test
+    hold the kernel to."""
+    err = (got.float() - want.float()).abs()
+    return (err / (2.0 ** -7 * want.float().abs().clamp_min(2.0 ** -4))).max()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_probabilities_meet_the_kernel_bound(causal):
+    """At Llama-3-8B heads, P split in two bf16 halves keeps the kernel's
+    arithmetic within one bf16 step of the plain version per element; P
+    rounded once to bf16 does not, which is why the kernel splits it."""
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 512, h, 128),
+                                                    dtype=np.float32))
+               .bfloat16() for h in (32, 8, 8))
+    want = fa.flash_attention_reference(q, k, v, causal=causal)
+    split = _kernel_arithmetic(q, k, v, causal=causal)
+    assert split.dtype == torch.bfloat16 and split.shape == want.shape
+    assert _of_bf16_step(split, want) <= 1.0
+    once = _kernel_arithmetic(q, k, v, causal=causal, split_p=False)
+    assert _of_bf16_step(once, want) > 1.0
+
+
 def test_value_error_contract_matches_reference():
     arrays = _inputs(6, t=48)
     with pytest.raises(ValueError):
@@ -146,10 +224,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# (B, T, Hq, Hkv, D): the tiny config's heads, Llama-3-8B's, and a T that
-# is not a multiple of the kernel's 64-row tile.
+# (B, T, Hq, Hkv, D): the tiny config's heads, Llama-3-8B's, a T that is not
+# a multiple of the kernels' 64-row tiles, a T < 64 that is not a multiple
+# of 16, a T that is a multiple of 128 but not of 256, and group 4 at D=64.
 _CARD_SHAPES = [(2, 128, 4, 2, 32), (1, 2048, 32, 8, 128),
-                (4, 512, 32, 8, 128), (2, 96, 8, 8, 64)]
+                (4, 512, 32, 8, 128), (2, 96, 8, 8, 64), (2, 40, 4, 1, 128),
+                (1, 384, 32, 8, 128), (3, 640, 8, 2, 64)]
 
 
 @pytest.mark.cuda
