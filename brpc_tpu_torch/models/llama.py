@@ -13,8 +13,9 @@ give the same logits:
   RMSNorm reduced in f32, an untied LM head and f32 logits.
 
 ``attn_fn`` is pluggable as in the reference; pass
-``brpc_tpu_torch.ops.flash_attention.flash_attention`` for the CUDA kernel.
-The train step waits for a later slice of the port.
+``brpc_tpu_torch.ops.flash_attention.flash_attention`` for the CUDA kernel
+when serving. That kernel is forward only, as the reference's is, so
+``make_train_step`` trains with dense attention (``attn_fn=None``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from typing import Callable, Dict, Optional
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from brpc_tpu_torch.utils.tree import tree_map
 
 Params = Dict[str, object]
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
@@ -182,9 +185,12 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     x = params["embed"][tokens].to(cfg.dtype)
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
-    layers = params["layers"]
+    # One unbind per stacked leaf: its backward stacks the layers' grads
+    # once, where indexing w[i] would add a zero-filled gradient of the
+    # whole stack for every layer.
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
     for i in range(cfg.n_layers):
-        lp = {name: w[i].to(cfg.dtype) for name, w in layers.items()}
+        lp = {name: ws[i].to(cfg.dtype) for name, ws in layers.items()}
         x = _layer(cfg, x, lp, positions, attn_fn)
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
     return (x @ params["lm_head"].to(cfg.dtype)).float()
@@ -196,8 +202,41 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     logits = forward(params, tokens, cfg, attn_fn)[:, :-1]
     targets = tokens[:, 1:].long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
     return torch.mean(logz - gold)
+
+
+def trainable(params: Params) -> Params:
+    """The same tensors as fresh leaves that require grad (storage shared),
+    for ``make_train_step`` and its optimizer."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), params)
+
+
+def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
+                    attn_fn: Optional[AttnFn] = None
+                    ) -> Callable[[Params, torch.Tensor], torch.Tensor]:
+    """Returns ``step(params, tokens) -> loss``, the counterpart of the
+    reference's ``make_train_step``.
+
+    ``optimizer`` holds the leaves of ``params`` (``optim.adamw`` or
+    ``optim.sgd`` over ``trainable(params)``). Where the reference returns
+    new params and optimizer state, ``step`` updates both in place and
+    returns the loss of the params it was given, a detached f32 scalar. The
+    gradients are freed before it returns, so a step holds one gradient
+    tree at its peak.
+    """
+
+    def step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        optimizer.zero_grad(set_to_none=True)
+        try:
+            loss = loss_fn(params, tokens, cfg, attn_fn)
+            loss.backward()
+            optimizer.step()
+        finally:
+            optimizer.zero_grad(set_to_none=True)
+        return loss.detach()
+
+    return step
 
 
 class LlamaModel(nn.Module):

@@ -63,14 +63,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """q: [B,T,Hq,D], k/v: [B,T,Hkv,D] -> [B,T,Hq*D] (llama.attention
-    contract). CUDA tensors run the kernel; CPU tensors the plain version."""
+    contract). CUDA tensors run the kernel; CPU tensors the plain version.
+
+    Forward only, as the reference is: when an input requires grad the
+    output carries a ``grad_fn`` whose backward raises, on either device.
+    """
     block_q, block_k = _check(q, k, v, block_q, block_k)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash attention for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _ForwardOnly.apply(q, k, v, causal, block_q, block_k)
+    return _forward(q, k, v, causal, block_q, block_k)
+
+
+def _forward(q, k, v, causal: bool, block_q: int,
+             block_k: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          block_q=block_q, block_k=block_k)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
     return _launch(q, k, v, causal)
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """Runs ``_forward`` and refuses to differentiate it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        return _forward(q, k, v, causal, block_q, block_k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError(
+            "flash_attention is forward only, as the reference kernel is; "
+            "training uses dense attention (attn_fn=None)")
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:

@@ -21,7 +21,18 @@ is fatal when it fails:
    request's logits against the dense attention path;
 5. one more request of each shape under ``torch.profiler``: device time by
    kind of kernel, the attention kernel's share and the device's idle
-   share over the request.
+   share over the request;
+6. the tiny config trained at f32 compute, three AdamW steps on the card
+   against the same three on the CPU, then a checkpoint saved after step 2
+   on the card, restored into a fresh template and stepped: it must give
+   the uninterrupted step 3 bit for bit;
+7. training at Llama-3-8B width cut to ``TRAIN_LAYERS`` layers (AdamW's
+   state for all 32 does not fit the card), dense attention as the
+   reference trains: a warm-up step and ``TRAIN_STEPS`` timed steps on one
+   batch, with each loss, the step time, tokens/s, peak memory, the
+   model's FLOPs and AdamW's bytes against the card's peaks, then one more
+   step under ``torch.profiler``. The loss must be finite and fall, no
+   flash kernel may launch, and the peak must stay under the card's 80 GB.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -32,10 +43,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -62,6 +75,22 @@ BF16_REL, BF16_FLOOR = 2.0 ** -7, 2.0 ** -4
 # max 0.1309 and mean 0.01828 on logits of |max| 5.4 (PERF.md, PR 1); the
 # bounds allow about twice that.
 DENSE_MAX_ABS, DENSE_MEAN_ABS = 0.25, 0.04
+# Tiny training, card against CPU, f32 compute with TF32 off. The first
+# step's gradients agree per leaf within 1e-5 of the leaf's largest, as
+# the port's gradients agree with the reference's on the CPU; the losses
+# within the forward's f32 bound. AdamW moves nearly every param by about
+# lr·sign(g) a step, so where |g| lies below the two devices' rounding of
+# the gradient (1e-8 here) the two can move a param by different fractions
+# of lr: the params are held per leaf by the card's update against the
+# CPU's, |Δ card - Δ CPU| / |Δ CPU| in L2 norm.
+TINY_TRAIN_LR, TINY_TRAIN_STEPS = 1e-3, 3
+TINY_TRAIN_GRAD_REL, TINY_TRAIN_LOSS_ATOL = 1e-5, 1e-4
+TINY_TRAIN_UPDATE_REL = 1e-2
+# Training at 8B width: AdamW's f32 params, grads and two moments take 16 B
+# a param, 115.9 GB at 32 layers; 8 layers take 32.1 GB.
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, (1, 2048), 5, 3e-4
+TRAIN_PEAK_LIMIT = 80e9  # bytes of device memory
+ADAMW_BYTES_PER_PARAM = 28  # read p, g, m, v; write p, m, v (f32)
 
 
 class SmokeFailure(RuntimeError):
@@ -118,12 +147,6 @@ def attention_bound(b, t, causal, dtype):
     t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
-
-
-def to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
 
 
 def phase_build():
@@ -210,6 +233,7 @@ def phase_tiny():
     """The tiny config on the card against the same forward on the CPU."""
     from brpc_tpu_torch.models import llama
     from brpc_tpu_torch.ops.flash_attention import flash_attention
+    from brpc_tpu_torch.utils.tree import tree_map
 
     tokens = torch.randint(0, 512, (2, 64),
                            generator=torch.Generator().manual_seed(0))
@@ -218,8 +242,8 @@ def phase_tiny():
         params = llama.init_params(
             cfg, generator=torch.Generator().manual_seed(0), device="cpu")
         want = llama.forward(params, tokens, cfg, flash_attention)
-        got = llama.forward(to_device(params, "cuda"), tokens.cuda(), cfg,
-                            flash_attention).cpu()
+        got = llama.forward(tree_map(lambda t: t.cuda(), params),
+                            tokens.cuda(), cfg, flash_attention).cpu()
         err = (got - want).abs().max().item()
         print(f"tiny forward {str(dtype)[6:]}: card against CPU max |err| "
               f"{err:.3e} (bound {tol})")
@@ -288,7 +312,8 @@ def phase_serve():
         check(launches == len(requests) * REPEATS * cfg.n_layers,
               f"{launches} launches over {len(requests) * REPEATS} requests")
         for tokens in requests:
-            profile_request(model, tokens)
+            profile_run(f"B={tokens.shape[0]} T={tokens.shape[1]}",
+                        lambda: model(tokens))
     return launches
 
 
@@ -308,20 +333,26 @@ def compare_dense(llama, params, cfg, tokens, flash_logits):
 # Kernel names by kind; the first pattern that matches names the kind.
 KERNEL_KINDS = (("flash_attention", re.compile(r"flash_fwd")),
                 ("matmul", re.compile(r"gemm|xmma|nvjet|cutlass|sm90_")),
+                ("optimizer", re.compile(r"[Aa]dam")),
                 ("copy_cast", re.compile(r"copy")),
                 ("other", re.compile(r"")))
 
 
-def profile_request(model, tokens):
-    """Device time of one request by kind of kernel, from the profiler."""
+def profile_run(label, fn):
+    """Runs ``fn`` once under ``torch.profiler`` and prints the device time
+    by kind of kernel, the idle share of the device span, the time in
+    fill kernels (zeros) and the kernels that took longest."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        model(tokens)
+        fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device events less the ranges the profiler marks on the device for
+    # annotations such as Optimizer.step, which span kernels listed too
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
     check(bool(kernels), "profiler recorded no device activity")
     by_kind = {kind: 0.0 for kind, _ in KERNEL_KINDS}
     by_name = {}
@@ -333,14 +364,169 @@ def profile_request(model, tokens):
     busy = sum(by_kind.values())
     span = max(e.time_range.end for e in kernels) - \
         min(e.time_range.start for e in kernels)
-    b, t = tokens.shape
-    print(f"profile B={b} T={t}: device_span_ms={span / 1e3:.3f} "
+    fill = sum(us for name, us in by_name.items() if "FillFunctor" in name)
+    print(f"profile {label}: device_span_ms={span / 1e3:.3f} "
           f"kernel_ms={busy / 1e3:.3f} idle_share={1 - busy / span:.4f} "
           f"flash_attention_share={by_kind['flash_attention'] / span:.4f} "
-          f"kernels={len(kernels)} " + " ".join(
+          f"kernels={len(kernels)} zero_fill_ms={fill / 1e3:.3f} " + " ".join(
               f"{k}_ms={v / 1e3:.3f}" for k, v in by_kind.items()))
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"profile top: {us / 1e3:.3f} ms {name[:100]}")
+
+
+def phase_tiny_train():
+    """The tiny config trained on the card against the CPU, and a resume
+    from a checkpoint on the card against the uninterrupted run."""
+    from brpc_tpu_torch import optim
+    from brpc_tpu_torch.models import llama
+    from brpc_tpu_torch.utils import checkpoint
+    from brpc_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    init = llama.init_params(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+
+    def start(device):
+        params = llama.trainable(
+            tree_map(lambda t: t.to(device, copy=True), init))
+        return params, optim.adamw(params, TINY_TRAIN_LR)
+
+    def train(params, opt, steps):
+        step = llama.make_train_step(cfg, opt)
+        t = tokens.to(tree_leaves(params)[0].device)
+        return [step(params, t).item() for _ in range(steps)]
+
+    def first_grads(device):
+        params = start(device)[0]
+        llama.loss_fn(params, tokens.to(device), cfg).backward()
+        return [p.grad.cpu() for p in tree_leaves(params)]
+
+    grad_err = max((g - w).abs().max().item() / w.abs().max().item()
+                   for g, w in zip(first_grads("cuda"), first_grads("cpu")))
+    cpu_params, cpu_opt = start("cpu")
+    want = train(cpu_params, cpu_opt, TINY_TRAIN_STEPS)
+    params, opt = start("cuda")
+    check(bool(opt.param_groups[0]["fused"]), "AdamW on the card not fused")
+    got = train(params, opt, TINY_TRAIN_STEPS - 1)
+    with tempfile.TemporaryDirectory() as ckpt:
+        checkpoint.save_checkpoint(ckpt, TINY_TRAIN_STEPS - 1, {
+            "params": params, "opt_state": opt.state_dict(),
+            "step": TINY_TRAIN_STEPS - 1})
+        got += train(params, opt, 1)
+        loss_err = max(abs(a - b) for a, b in zip(got, want))
+        param_err = update_err = 0.0
+        for p, q, p0 in zip(tree_leaves(params), tree_leaves(cpu_params),
+                            tree_leaves(init)):
+            diff = p.detach().cpu() - q.detach()
+            param_err = max(param_err, diff.abs().max().item())
+            update_err = max(update_err, (diff.norm() / (q.detach() - p0)
+                                          .norm()).item())
+        print(f"tiny train f32 x{TINY_TRAIN_STEPS} AdamW: card losses "
+              f"{got}, CPU losses {want}; first-step grads max |err| / "
+              f"max |grad| {grad_err:.3e} (bound {TINY_TRAIN_GRAD_REL}), "
+              f"max |loss err| {loss_err:.3e} (bound "
+              f"{TINY_TRAIN_LOSS_ATOL}), updates' relative L2 err "
+              f"{update_err:.3e} (bound {TINY_TRAIN_UPDATE_REL}), max "
+              f"|param err| {param_err:.3e}")
+        check(grad_err <= TINY_TRAIN_GRAD_REL
+              and loss_err <= TINY_TRAIN_LOSS_ATOL
+              and update_err <= TINY_TRAIN_UPDATE_REL,
+              "tiny training on the card differs from the CPU")
+
+        fresh, fresh_opt = start("cuda")
+        optim.init_state(fresh_opt)
+        state = checkpoint.restore_checkpoint(ckpt, template={
+            "params": fresh, "opt_state": fresh_opt.state_dict(),
+            "step": 0})
+    fresh_opt.load_state_dict(state["opt_state"])
+    resumed = train(fresh, fresh_opt, 1)
+    same = resumed == got[-1:] and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(fresh),
+                                          tree_leaves(params)))
+    print(f"tiny train resume: step {state['step']} restored, step "
+          f"{TINY_TRAIN_STEPS} loss {resumed[0]} against {got[-1]}, params "
+          f"{'bit-equal' if same else 'DIFFER'}")
+    check(same, "the resumed step differs from the uninterrupted one")
+
+
+def train_flops(cfg, b, t):
+    """Model FLOPs of one train step: 6 per matmul weight per token
+    (forward 2, backward 4), and dense attention's two products over every
+    (query, key) pair, 4·B·Hq·D·T² forward and twice that backward, per
+    layer. The embedding is a gather and counts nothing."""
+    h, q_out = cfg.hidden, cfg.n_heads * cfg.head_dim
+    kv_out = cfg.n_kv_heads * cfg.head_dim
+    per_layer = h * (q_out + 2 * kv_out) + q_out * h \
+        + 3 * h * cfg.intermediate
+    matmul_params = cfg.n_layers * per_layer + h * cfg.vocab_size
+    attention = 12 * b * cfg.n_heads * cfg.head_dim * t * t * cfg.n_layers
+    return 6 * matmul_params * b * t + attention
+
+
+def phase_train():
+    """Training at Llama-3-8B width, ``TRAIN_LAYERS`` layers."""
+    from brpc_tpu_torch import optim
+    from brpc_tpu_torch.models import llama
+    from brpc_tpu_torch.ops import flash_attention as fa
+    from brpc_tpu_torch.utils.tree import tree_leaves
+
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = llama.trainable(llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda"))
+    opt = optim.adamw(params, TRAIN_LR)
+    step = llama.make_train_step(cfg, opt)
+    b, t = TRAIN_BATCH
+    tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"train: Llama-3-8B width, {cfg.n_layers} of 32 layers, "
+          f"{n_params} params ({n_params * 16 / 1e9:.3f} GB of f32 params, "
+          f"grads and AdamW moments), batch B={b} T={t}, dense attention, "
+          f"AdamW lr {TRAIN_LR} fused={opt.param_groups[0]['fused']}, init "
+          f"{time.perf_counter() - t0:.3f} s")
+
+    fa.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, seconds = [], []
+    for _ in range(1 + TRAIN_STEPS):  # the first is the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, tokens)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    timed = seconds[1:]
+    median = statistics.median(timed)
+    flops = train_flops(cfg, b, t)
+    adamw_bytes = ADAMW_BYTES_PER_PARAM * n_params
+    flop_ms = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
+    adamw_ms = 1e3 * adamw_bytes / PEAK_BYTES_PER_S
+    print(f"train losses (warm-up first): {losses}")
+    print(f"train step x{TRAIN_STEPS}: ms median={median * 1e3:.3f} "
+          f"min={min(timed) * 1e3:.3f} max={max(timed) * 1e3:.3f} "
+          f"warmup={seconds[0] * 1e3:.3f} tokens_per_s median="
+          f"{b * t / median:.1f} peak_mem_gb={peak / 1e9:.3f} "
+          f"flash_launches={launches}")
+    print(f"train step model FLOPs {flops:.4e}: bound {flop_ms:.3f} ms at "
+          f"989 TFLOP/s bf16, share of peak {flop_ms / (median * 1e3):.4f}; "
+          f"AdamW moves {adamw_bytes / 1e9:.3f} GB ({ADAMW_BYTES_PER_PARAM} "
+          f"B a param): {adamw_ms:.3f} ms at 3.35 TB/s")
+    check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
+    check(launches == 0, f"{launches} flash launches while training")
+    check(peak < TRAIN_PEAK_LIMIT, f"train peak {peak} bytes")
+    profile_run(f"train step B={b} T={t} layers={cfg.n_layers}",
+                lambda: step(params, tokens))
 
 
 def main() -> int:
@@ -356,6 +542,8 @@ def main() -> int:
     rows = phase_kernels()
     phase_tiny()
     launches = phase_serve()
+    phase_tiny_train()
+    phase_train()
 
     b, t = REQUESTS[0]
     row = rows[(b, t, torch.bfloat16, True)]

@@ -12,6 +12,7 @@ card and skip without one; run them with
 ``python -m pytest tests/test_torch_*.py -m cuda``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +20,11 @@ import torch
 
 from brpc_tpu.models import llama as ref_llama
 from brpc_tpu.ops import flash_attention as ref_flash
+from brpc_tpu_torch import optim
+from brpc_tpu_torch.models import llama
 from brpc_tpu_torch.ops import _build
 from brpc_tpu_torch.ops import flash_attention as fa
+from brpc_tpu_torch.utils.tree import tree_leaves
 
 
 def _inputs(seed, b=2, t=128, hq=4, hkv=2, d=32):
@@ -83,6 +87,56 @@ def test_cpu_runs_plain_version_without_launch():
     assert torch.equal(got, want)
     assert got.shape == (2, 64, 4 * 32) and got.dtype == torch.float32
     assert fa.launches == before
+
+
+def test_reference_kernel_cannot_be_differentiated():
+    """The reference kernel is forward only: ``jax.grad`` through it fails."""
+    q, k, v = (jnp.asarray(a) for a in _inputs(8, t=64))
+    with pytest.raises(AssertionError):
+        jax.grad(lambda q: ref_flash(q, k, v, block_q=32, block_k=32,
+                                     interpret=True).sum())(q)
+
+
+def _requiring_grad(seed):
+    return [torch.from_numpy(a).requires_grad_(True)
+            for a in _inputs(seed, t=64)]
+
+
+def test_backward_raises_on_cpu():
+    q, k, v = _requiring_grad(9)
+    out = fa.flash_attention(q, k, v, block_q=32, block_k=32)
+    assert out.grad_fn is not None
+    with pytest.raises(RuntimeError, match="forward only"):
+        out.sum().backward()
+    assert q.grad is None and k.grad is None and v.grad is None
+
+
+def test_forward_with_grad_inputs_matches_plain_version():
+    q, k, v = _requiring_grad(10)
+    got = fa.flash_attention(q, k, v, block_q=32, block_k=32)
+    with torch.no_grad():
+        want = fa.flash_attention_reference(q, k, v, block_q=32, block_k=32)
+        assert fa.flash_attention(q, k, v, block_q=32,
+                                  block_k=32).grad_fn is None
+    assert torch.equal(got.detach(), want)
+    with torch.inference_mode():
+        assert fa.flash_attention(q, k, v, block_q=32,
+                                  block_k=32).grad_fn is None
+
+
+def test_train_step_with_flash_attention_raises_at_first_step():
+    cfg = llama.LlamaConfig.tiny()
+    params = llama.trainable(llama.init_params(
+        cfg, generator=torch.Generator().manual_seed(0), device="cpu"))
+    before = [p.detach().clone() for p in tree_leaves(params)]
+    step = llama.make_train_step(cfg, optim.adamw(params, 1e-3),
+                                 attn_fn=fa.flash_attention)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 32)))
+    with pytest.raises(RuntimeError, match="forward only"):
+        step(params, tokens)
+    for p, b in zip(tree_leaves(params), before):
+        assert torch.equal(p, b) and p.grad is None
 
 
 def _bad(change):
@@ -260,3 +314,22 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype, causal):
     worst = (err / bound).max().item()
     assert worst <= 1.0, (f"max |err| {err.max().item()}, worst element at "
                           f"{worst} of its bound")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_forward_only_on_card(cuda_device, dtype):
+    """With inputs that require grad the kernel still launches once and
+    gives the same output, and its backward raises, as on the CPU."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = (torch.randn((1, 256, h, 128), generator=g, device=cuda_device)
+               .to(dtype).requires_grad_(True) for h in (32, 8, 8))
+    before = fa.launches
+    out = fa.flash_attention(q, k, v)
+    assert fa.launches == before + 1 and out.grad_fn is not None
+    with torch.no_grad():
+        want = fa.flash_attention(q, k, v)
+    assert torch.equal(out.detach(), want)
+    with pytest.raises(RuntimeError, match="forward only"):
+        out.float().sum().backward()
+    assert q.grad is None
