@@ -57,7 +57,8 @@ def _nvcc() -> str:
 
 
 def build(names: list[str] | None = None) -> dict[str, str]:
-    """Compile every named source (default: all) whose library is missing.
+    """Compile every named source (default: all) whose library is missing,
+    one nvcc for each source, all started together.
 
     Returns the compiler's output (ptxas's registers, spills and shared
     memory of each kernel) by the name of each source it compiled. nvcc
@@ -71,19 +72,24 @@ def build(names: list[str] | None = None) -> dict[str, str]:
         return logs
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = _nvcc()
+    procs = {}
     for name in todo:
         out = library_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
+        procs[name] = (out, tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            check=False)
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode:
             tmp.unlink(missing_ok=True)
-            raise BuildError(f"{name}.cu (nvcc exit {proc.returncode}):\n"
-                             f"{proc.stdout}")
-        os.replace(tmp, out)
-        logs[name] = proc.stdout
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n"
+                          f"{logs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise BuildError("\n".join(failed))
     return logs
 
 

@@ -4,15 +4,22 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Every phase
 is fatal when it fails:
 
 1. the card's name and power limit; every kernel under
-   ``brpc_tpu_torch/csrc/`` built with nvcc, the build time, and each
-   kernel's registers and spills as ptxas reports them;
+   ``brpc_tpu_torch/csrc/`` built with nvcc (one process each, all at once),
+   the build time, and each kernel's registers and spills as ptxas reports
+   them; beside it the native RPC core (``cpp/``) built through the port's
+   ``rpc`` loader (g++), with its time;
 2. each kernel against its plain PyTorch version at the shapes of the
    serving path (Llama-3-8B heads: Hq 32, Hkv 8, D 128), f32 and bf16,
    causal and not, with its time from CUDA events and the host's time to
    issue each call, its achieved TFLOP/s, its bound, the plain version's
    time and one PyTorch library call for the same function;
-3. the tiny config's forward on the card against the same forward on the
-   CPU, in f32 and bf16 compute;
+3. the parameter server's two kernels at Llama-3-8B's embedding table
+   (128256 x 4096 f32, drawn from a seed as the shard draws it) and
+   ``PS_K`` Zipf-skewed ids: the row gather bit-equal to ``index_select``,
+   the ordered scatter-sub bit-equal to its plain version and to
+   ``np.subtract.at`` on the host, each with its time, bound, plain and
+   library times; then the tiny config's forward on the card against the
+   same forward on the CPU, in f32 and bf16 compute;
 4. serving at Llama-3-8B width, all 32 layers, weights drawn from a seed:
    three request shapes through ``LlamaModel`` with the flash-attention
    kernel, each served ``REPEATS`` times after a warm-up and checked for
@@ -32,7 +39,17 @@ is fatal when it fails:
    batch, with each loss, the step time, tokens/s, peak memory, the
    model's FLOPs and AdamW's bytes against the card's peaks, then one more
    step under ``torch.profiler``. The loss must be finite and fall, no
-   flash kernel may launch, and the peak must stay under the card's 80 GB.
+   flash kernel may launch, and the peak must stay under the card's 80 GB;
+8. the parameter server serving that table from device memory:
+   ``DevicePsShardServer`` on the card, ``RemoteEmbedding`` over loopback
+   RPC, a warm-up, then ``PS_PAIRS`` Lookup/ApplyGrad pairs of ``PS_K``
+   ids each. Every Lookup and the final table must equal a host replay
+   (``np.subtract.at`` in the same order on the seeded table) bit for bit,
+   each request must launch its kernel once, and no device buffer may be
+   live after the server closes. Latency, MB/s, peak memory and one
+   request's split between staging, kernel, fetch and the rest (RPC and
+   host work); then ``PS_THREADS`` client threads at once, each on its own
+   rows, with the same exact ledger.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -41,16 +58,20 @@ repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
@@ -91,6 +112,16 @@ TINY_TRAIN_UPDATE_REL = 1e-2
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, (1, 2048), 5, 3e-4
 TRAIN_PEAK_LIMIT = 80e9  # bytes of device memory
 ADAMW_BYTES_PER_PARAM = 28  # read p, g, m, v; write p, m, v (f32)
+# The PS device shard at Llama-3-8B's embedding table, as Meta's published
+# config.json gives it (vocab_size 128256, hidden_size 4096), f32: 2.10 GB.
+# A request carries one sequence of 2048 tokens (33.5 MB of rows, under the
+# native protocol's 64 MiB body limit), ids drawn Zipf-skewed (token
+# frequencies) over a seeded permutation of the vocabulary, so that ids
+# repeat; the learning rate is not a power of two.
+PS_VOCAB, PS_DIM, PS_K = 128256, 4096, 2048
+PS_ZIPF, PS_LR, PS_SEED = 1.1, 0.05, 0
+PS_PAIRS = 8  # timed Lookup/ApplyGrad pairs, one request at a time
+PS_THREADS, PS_THREAD_PAIRS = 4, 3  # the concurrent stretch
 
 
 class SmokeFailure(RuntimeError):
@@ -115,13 +146,19 @@ def kernel_error(got, want):
 
 def time_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
     """Mean milliseconds per call over ``iters`` calls: (device time from
-    CUDA events, host time to issue the call). A device time close to the
-    host time is bound by the host's enqueue, not by the kernel."""
+    CUDA events, host time to issue the call). A sleep kernel, about twice
+    as long as the calls took in the warm-up, holds the device while the
+    host issues them, so the events time the calls back to back on the
+    device and not the host's pace of issuing them (a small kernel's
+    wrapper can take longer to call than the kernel to run)."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    per_call = (time.perf_counter() - t0) / warmup
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2 * per_call * iters, 5.0) * 2e9))  # cycles
     start.record()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -159,12 +196,29 @@ def phase_build():
     print(smi.stdout.strip())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
-    logs = _build.build()
-    print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.3f} s")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native = pool.submit(build_native_core)
+        t0 = time.perf_counter()
+        logs = _build.build()
+        print(f"build: {sorted(logs)} in {time.perf_counter() - t0:.3f} s")
+        native.result()
     for log in logs.values():
         for line in ptxas_report(log):
             print(f"ptxas {line}")
+
+
+def build_native_core():
+    """The native RPC core through the port's loader, built from ``cpp/``
+    when the checkout has no library yet."""
+    from brpc_tpu_torch import rpc
+
+    t0 = time.perf_counter()
+    rpc._load()
+    built = rpc.native_build or {"toolchain": "nothing (found built)",
+                                 "seconds": 0.0}
+    print(f"native core: built by {built['toolchain']} in "
+          f"{built['seconds']:.3f} s on {os.cpu_count()} cores (loaded in "
+          f"{time.perf_counter() - t0:.3f} s)")
 
 
 def ptxas_report(log):
@@ -529,6 +583,272 @@ def phase_train():
                 lambda: step(params, tokens))
 
 
+def seeded_table():
+    """The shard's initial table, drawn as ``PsShardServer`` draws it for
+    shard 0 of 1 (through float64, then scaled and cast)."""
+    rng = np.random.default_rng(PS_SEED)
+    return (rng.standard_normal((PS_VOCAB, PS_DIM)) * 0.02).astype(
+        np.float32)
+
+
+def zipf_ids(rng, perm, stride=1, offset=0):
+    """``PS_K`` ids whose ranks are Zipf-distributed over ``perm``; with a
+    stride, moved onto the rows ``id % stride == offset``."""
+    ids = perm[(rng.zipf(PS_ZIPF, PS_K) - 1) % PS_VOCAB]
+    return (ids - ids % stride + offset).astype(np.int32)
+
+
+def same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def phase_ps_kernels(table):
+    """K2 and K3 against their plain versions at the shard's full size;
+    returns their rows of the kernels line (launches filled in later)."""
+    from brpc_tpu_torch.ops import embedding_rows as er
+
+    rng = np.random.default_rng(PS_SEED + 1)
+    perm = rng.permutation(PS_VOCAB)
+    ids = zipf_ids(rng, perm)
+    grads = rng.standard_normal((PS_K, PS_DIM)).astype(np.float32)
+    unique = len(np.unique(ids))
+    t = torch.from_numpy(table).cuda()
+    i, g = torch.from_numpy(ids).cuda(), torch.from_numpy(grads).cuda()
+    lr = torch.tensor(np.float32(PS_LR), device="cuda")
+    print(f"ps kernels: table {PS_VOCAB}x{PS_DIM} f32 "
+          f"({table.nbytes / 1e9:.3f} GB), k={PS_K} Zipf({PS_ZIPF}) ids, "
+          f"{unique} distinct, most repeated x"
+          f"{np.unique(ids, return_counts=True)[1].max()}, lr {PS_LR}")
+    rows = {}
+
+    got = er.gather_rows(t, i)
+    want = er.gather_rows_reference(t, i)
+    torch.cuda.synchronize()
+    check(same_bits(got, want), "gather_rows differs from index_select")
+    ms, host_ms = time_ms(lambda: er.gather_rows(t, i), 50)
+    issue_ms = {"gather_rows": host_ms}
+    plain_ms, _ = time_ms(lambda: er.gather_rows_reference(t, i), 50)
+    library_ms, _ = time_ms(lambda: t.index_select(0, i), 50)
+    nbytes = (unique + PS_K) * PS_DIM * 4 + PS_K * 4
+    rows["gather_rows"] = dict(
+        max_abs_err=(got - want).abs().max().item(), ms=ms,
+        plain_ms=plain_ms, bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S,
+        bound_by="bytes", library_ms=library_ms)
+    del got, want
+
+    got = er.scatter_sub(t, i, g, lr)
+    want = er.scatter_sub_reference(t, i, g, lr)
+    torch.cuda.synchronize()
+    check(same_bits(got, want), "scatter_sub differs from its plain version")
+    host = table.copy()
+    np.subtract.at(host, ids, PS_LR * grads)
+    check(got.cpu().numpy().tobytes() == host.tobytes(),
+          "scatter_sub differs from np.subtract.at")
+    check(same_bits(t, torch.from_numpy(table).cuda()),
+          "scatter_sub wrote its input table")
+    err = (got - want).abs().max().item()
+    del got, want, host
+    ms, issue_ms["scatter_sub"] = time_ms(
+        lambda: er.scatter_sub(t, i, g, lr), 10)
+    plain_ms, _ = time_ms(lambda: er.scatter_sub_reference(t, i, g, lr), 2,
+                          warmup=1)
+    library_ms, _ = time_ms(
+        lambda: t.clone().index_add_(0, i, g, alpha=-PS_LR), 10)
+    nbytes = 2 * table.nbytes + PS_K * 4 + grads.nbytes + 4
+    rows["scatter_sub"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
+        library_ms=library_ms)
+    for name, row in rows.items():
+        print(f"{name}: bit-equal max_abs_err={row['max_abs_err']} "
+              f"ms={row['ms']:.4f} host_ms={issue_ms[name]:.4f} "
+              f"plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']:.4f} "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
+              f"of_bound={row['bound_ms'] / row['ms']:.4f}")
+    del t, i, g, lr
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ps_serve(table):
+    """The device shard serving Llama-3-8B's table over loopback RPC;
+    returns the kernels' launches in the one-request-at-a-time stretch."""
+    from brpc_tpu_torch import obs
+    from brpc_tpu_torch.device import DeviceClient
+    from brpc_tpu_torch.ops import embedding_rows as er
+    from brpc_tpu_torch.ps_remote import DevicePsShardServer, RemoteEmbedding
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    replay = table.copy()
+    dev = DeviceClient()
+    t0 = time.perf_counter()
+    server = DevicePsShardServer(PS_VOCAB, PS_DIM, 0, 1, lr=PS_LR,
+                                 seed=PS_SEED, device_client=dev)
+    emb = RemoteEmbedding([server.address], PS_VOCAB, PS_DIM,
+                          timeout_ms=600000)
+    print(f"ps serve: DevicePsShardServer {PS_VOCAB}x{PS_DIM} f32 in device "
+          f"memory, up in {time.perf_counter() - t0:.3f} s, lr {PS_LR}, "
+          f"combine off")
+    try:
+        check(server._dev_serving and server.table.tobytes()
+              == replay.tobytes(), "the shard's seeded table differs")
+        rng = np.random.default_rng(PS_SEED + 2)
+        perm = rng.permutation(PS_VOCAB)
+        requests = [(zipf_ids(rng, perm), rng.standard_normal(
+            (PS_K, PS_DIM)).astype(np.float32)) for _ in range(PS_PAIRS + 1)]
+
+        def lookup(ids):
+            t0 = time.perf_counter()
+            rows = emb.lookup(ids)
+            seconds = time.perf_counter() - t0
+            check(rows.tobytes() == replay[ids].tobytes(),
+                  "a Lookup differs from the host replay")
+            return seconds
+
+        def apply(ids, grads):
+            t0 = time.perf_counter()
+            emb.apply_gradients(ids, grads)
+            seconds = time.perf_counter() - t0
+            np.subtract.at(replay, ids, PS_LR * grads)
+            return seconds
+
+        lookup(requests[0][0])  # warm-up: executables, first launches
+        apply(*requests[0])
+        for kernel in er.launches:
+            er.launches[kernel] = 0
+        latency = {"Lookup": [], "ApplyGrad": []}
+        for ids, grads in requests[1:]:
+            for method, fn, kernel in (
+                    ("Lookup", lambda: lookup(ids), "gather_rows"),
+                    ("ApplyGrad", lambda: apply(ids, grads), "scatter_sub")):
+                before = er.launches[kernel]
+                latency[method].append(fn())
+                check(er.launches[kernel] == before + 1,
+                      f"{method}: {er.launches[kernel] - before} launches")
+        launches = dict(er.launches)
+        check(launches == {"gather_rows": PS_PAIRS, "scatter_sub": PS_PAIRS},
+              f"launches {launches}")
+        check(server.table.tobytes() == replay.tobytes(),
+              "the final table differs from the host replay")
+        mb = PS_K * PS_DIM * 4 / 1e6
+        for method, secs in latency.items():
+            median = statistics.median(secs)
+            print(f"ps {method} x{PS_PAIRS} ({mb:.1f} MB each): latency_ms "
+                  f"median={median * 1e3:.3f} min={min(secs) * 1e3:.3f} "
+                  f"max={max(secs) * 1e3:.3f} MB_per_s median="
+                  f"{mb / median:.1f} launches_each=1")
+        print(f"ps serve: {PS_PAIRS} Lookups and {PS_PAIRS} ApplyGrads "
+              f"bit-equal to the host replay, final table bit-equal, "
+              f"launches {launches}, peak_mem_gb="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+        ids, grads = requests[1]
+        request_split(dev, er, "Lookup", lambda: lookup(ids))
+        request_split(dev, er, "ApplyGrad", lambda: apply(ids, grads))
+        serve_concurrently(server, emb, replay, RemoteEmbedding, obs, er)
+    finally:
+        emb.close()
+        server.close()
+    live = dev.live()
+    dev.close()
+    check(not live, f"device buffers live after close: {live}")
+    print("ps serve: no device buffer live after close")
+    return launches
+
+
+def request_split(dev, er, method, fn):
+    """One request's host time split between staging, the kernel (the
+    wrapper's call and a synchronize), the fetch and the rest: RPC, the
+    client's and the handler's host work. ``fn`` returns the request's
+    seconds, its checks left out. The kernel's share of the request, and
+    the share of staging, kernel and fetch together (the time the device
+    or its copy engines work for the request), stand in for the device's
+    busy share: the profiler does not see the kernels that the shard's
+    handler threads launch."""
+    spent = {"stage": 0.0, "kernel": 0.0, "fetch": 0.0}
+
+    def timed(what, call):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = call(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[what] += time.perf_counter() - t0
+            return out
+        return run
+
+    saved = er.gather_rows, er.scatter_sub
+    dev.stage, dev.fetch = timed("stage", dev.stage), timed(
+        "fetch", dev.fetch)
+    er.gather_rows, er.scatter_sub = (timed("kernel", f) for f in saved)
+    try:
+        total = fn()
+    finally:
+        del dev.stage, dev.fetch
+        er.gather_rows, er.scatter_sub = saved
+    rest = total - sum(spent.values())
+    print(f"ps {method} split: total_ms={total * 1e3:.3f} " + " ".join(
+        f"{k}_ms={v * 1e3:.3f}" for k, v in spent.items())
+        + f" rpc_and_host_ms={rest * 1e3:.3f} kernel_share="
+        f"{spent['kernel'] / total:.4f} device_share="
+        f"{sum(spent.values()) / total:.4f}")
+
+
+def serve_concurrently(server, emb, replay, remote_embedding, obs, er):
+    """``PS_THREADS`` clients at once, each mixing Lookups and ApplyGrads
+    on its own rows (ids congruent to its index mod ``PS_THREADS``): every
+    row has one writer, so the replay does not depend on the order in
+    which the shard installs the threads' tables. Each Lookup must equal
+    the thread's replay; the final table must equal the replay."""
+    wasted0 = obs.counter("ps_device_wasted_launches").get_value()
+    before = dict(er.launches)
+    errors = []
+
+    def client(n):
+        rng = np.random.default_rng(PS_SEED + 10 + n)
+        perm = rng.permutation(PS_VOCAB)
+        mine = remote_embedding([server.address], PS_VOCAB, PS_DIM,
+                                timeout_ms=600000)
+        try:
+            for _ in range(PS_THREAD_PAIRS):
+                ids = zipf_ids(rng, perm, PS_THREADS, n)
+                if mine.lookup(ids).tobytes() != replay[ids].tobytes():
+                    errors.append(f"thread {n}: a Lookup differs")
+                grads = rng.standard_normal((PS_K, PS_DIM)).astype(
+                    np.float32)
+                mine.apply_gradients(ids, grads)
+                np.subtract.at(replay, ids, PS_LR * grads)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"thread {n}: {e!r}")
+        finally:
+            mine.close()
+
+    threads = [threading.Thread(target=client, args=(n,))
+               for n in range(PS_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    seconds = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads), "a client hung")
+    check(not errors, "; ".join(errors))
+    check(server.table.tobytes() == replay.tobytes(),
+          "the table after the concurrent stretch differs from the replay")
+    wasted = obs.counter("ps_device_wasted_launches").get_value() - wasted0
+    gathers = er.launches["gather_rows"] - before["gather_rows"]
+    scatters = er.launches["scatter_sub"] - before["scatter_sub"]
+    n = PS_THREADS * PS_THREAD_PAIRS
+    check(gathers == n and scatters == n + wasted,
+          f"concurrent launches: {gathers} gathers, {scatters} scatters, "
+          f"{wasted} wasted, {n} requests of each")
+    print(f"ps concurrent: {PS_THREADS} threads x {PS_THREAD_PAIRS} "
+          f"Lookup/ApplyGrad pairs in {seconds:.3f} s, ledger exact, "
+          f"ps_device_wasted_launches={wasted}, launches gather={gathers} "
+          f"scatter={scatters}, peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -540,18 +860,34 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels()
+    t0 = time.perf_counter()
+    table = seeded_table()
+    print(f"ps: seeded table drawn on the host in "
+          f"{time.perf_counter() - t0:.3f} s")
+    ps_rows = phase_ps_kernels(table)
     phase_tiny()
     launches = phase_serve()
     phase_tiny_train()
     phase_train()
+    ps_launches = phase_ps_serve(table)
 
     b, t = REQUESTS[0]
     row = rows[(b, t, torch.bfloat16, True)]
+    source = "brpc_tpu_torch/csrc/embedding_rows.cu"
     print(json.dumps({"kernels": [{
         "name": "flash_attention", "route": "cuda",
         "source": "brpc_tpu_torch/csrc/flash_attention.cu",
         "replaces": "brpc_tpu/ops/flash_attention.py:71",
-        "design": "wgmma+tma, split-p", "launches": launches, **row}]}))
+        "design": "wgmma+tma, split-p", "launches": launches, **row}, {
+        "name": "gather_rows", "route": "cuda", "source": source,
+        "replaces": "cpp/device/pjrt_executable.cc:100",
+        "design": "StableHLO device program, not Pallas; a block per id",
+        "launches": ps_launches["gather_rows"], **ps_rows["gather_rows"]}, {
+        "name": "scatter_sub", "route": "cuda", "source": source,
+        "replaces": "cpp/device/pjrt_executable.cc:121",
+        "design": "StableHLO device program, not Pallas; ordered, a block "
+                  "per distinct id", "launches": ps_launches["scatter_sub"],
+        **ps_rows["scatter_sub"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

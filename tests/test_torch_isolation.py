@@ -40,7 +40,10 @@ def test_imports_pull_in_neither_jax_nor_reference():
     names, bad = out.stdout.split("|")
     assert {"brpc_tpu_torch.models.llama", "brpc_tpu_torch.ops._build",
             "brpc_tpu_torch.ops.flash_attention", "brpc_tpu_torch.optim",
-            "brpc_tpu_torch.utils.checkpoint"} <= set(names.split())
+            "brpc_tpu_torch.utils.checkpoint", "brpc_tpu_torch.device",
+            "brpc_tpu_torch.ops.embedding_rows", "brpc_tpu_torch.rpc",
+            "brpc_tpu_torch.ps_remote", "brpc_tpu_torch.durable",
+            "brpc_tpu_torch.reshard"} <= set(names.split())
     assert bad.strip() == "[]"
 
 
