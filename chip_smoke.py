@@ -17,9 +17,14 @@ is fatal when it fails:
    (128256 x 4096 f32, drawn from a seed as the shard draws it) and
    ``PS_K`` Zipf-skewed ids: the row gather bit-equal to ``index_select``,
    the ordered scatter-sub bit-equal to its plain version and to
-   ``np.subtract.at`` on the host, each with its time, bound, plain and
-   library times; then the tiny config's forward on the card against the
-   same forward on the CPU, in f32 and bf16 compute;
+   ``np.subtract.at`` on the host, each with its bound and plain time; each
+   timed in turns with its library call (three rounds of library, kernel,
+   kernel, library; median and range), the scatter-sub also with a bare
+   device-to-device copy of the table, its practical floor; the
+   scatter-sub again at 32 times the bucket, bit-equal to its plain version
+   and timed in turns beside the same two; then the tiny
+   config's forward on the card against the same forward on the CPU, in
+   f32 and bf16 compute;
 4. serving at Llama-3-8B width, all 32 layers, weights drawn from a seed:
    three request shapes through ``LlamaModel`` with the flash-attention
    kernel, each served ``REPEATS`` times after a warm-up and checked for
@@ -167,6 +172,30 @@ def time_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, 1e3 * host_s / iters
+
+
+def in_turns(label, fns, iters, rounds=3):
+    """Times each of ``fns`` (by name) with ``time_ms`` in turns: each of
+    ``rounds`` rounds runs them in order and then in reverse (library,
+    kernel, kernel, library), so that a drift of the card's clock or of
+    its neighbours falls on all alike. Prints and returns (median, min,
+    max) of the device ms of each, over its 2 * ``rounds`` samples."""
+    samples = {name: [] for name in fns}
+    host = {name: [] for name in fns}
+    order = list(fns)
+    for _ in range(rounds):
+        for name in order + order[::-1]:
+            ms, host_ms = time_ms(fns[name], iters)
+            samples[name].append(ms)
+            host[name].append(host_ms)
+    out = {name: (statistics.median(v), min(v), max(v))
+           for name, v in samples.items()}
+    print(f"{label} in turns, {rounds} rounds of ({', '.join(order)}, "
+          f"{', '.join(order[::-1])}), {iters} calls a sample: " + " ".join(
+              f"{name}_ms median={m:.4f} min={lo:.4f} max={hi:.4f} "
+              f"host_ms={statistics.median(host[name]):.4f}"
+              for name, (m, lo, hi) in out.items()))
+    return out
 
 
 def attention_ops(b, t, causal):
@@ -625,16 +654,17 @@ def phase_ps_kernels(table):
     want = er.gather_rows_reference(t, i)
     torch.cuda.synchronize()
     check(same_bits(got, want), "gather_rows differs from index_select")
-    ms, host_ms = time_ms(lambda: er.gather_rows(t, i), 50)
-    issue_ms = {"gather_rows": host_ms}
+    err = (got - want).abs().max().item()
+    del got, want
+    turns = in_turns("gather_rows", {
+        "library": lambda: t.index_select(0, i),
+        "kernel": lambda: er.gather_rows(t, i)}, 50)
     plain_ms, _ = time_ms(lambda: er.gather_rows_reference(t, i), 50)
-    library_ms, _ = time_ms(lambda: t.index_select(0, i), 50)
     nbytes = (unique + PS_K) * PS_DIM * 4 + PS_K * 4
     rows["gather_rows"] = dict(
-        max_abs_err=(got - want).abs().max().item(), ms=ms,
-        plain_ms=plain_ms, bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S,
-        bound_by="bytes", library_ms=library_ms)
-    del got, want
+        max_abs_err=err, ms=turns["kernel"][0], plain_ms=plain_ms,
+        bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
+        library_ms=turns["library"][0])
 
     got = er.scatter_sub(t, i, g, lr)
     want = er.scatter_sub_reference(t, i, g, lr)
@@ -648,27 +678,59 @@ def phase_ps_kernels(table):
           "scatter_sub wrote its input table")
     err = (got - want).abs().max().item()
     del got, want, host
-    ms, issue_ms["scatter_sub"] = time_ms(
-        lambda: er.scatter_sub(t, i, g, lr), 10)
+    turns = in_turns("scatter_sub", {
+        "library": lambda: t.clone().index_add_(0, i, g, alpha=-PS_LR),
+        "copy": lambda: torch.empty_like(t).copy_(t),
+        "kernel": lambda: er.scatter_sub(t, i, g, lr)}, 10)
     plain_ms, _ = time_ms(lambda: er.scatter_sub_reference(t, i, g, lr), 2,
                           warmup=1)
-    library_ms, _ = time_ms(
-        lambda: t.clone().index_add_(0, i, g, alpha=-PS_LR), 10)
     nbytes = 2 * table.nbytes + PS_K * 4 + grads.nbytes + 4
     rows["scatter_sub"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=turns["kernel"][0], plain_ms=plain_ms,
         bound_ms=1e3 * nbytes / PEAK_BYTES_PER_S, bound_by="bytes",
-        library_ms=library_ms)
+        library_ms=turns["library"][0], copy_ms=turns["copy"][0])
+    scatter_sub_large_bucket(t, perm, rng, lr)
     for name, row in rows.items():
         print(f"{name}: bit-equal max_abs_err={row['max_abs_err']} "
-              f"ms={row['ms']:.4f} host_ms={issue_ms[name]:.4f} "
-              f"plain_ms={row['plain_ms']:.4f} "
+              f"ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} "
               f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}) "
-              f"of_bound={row['bound_ms'] / row['ms']:.4f}")
+              f"of_bound={row['bound_ms'] / row['ms']:.4f}"
+              + (f" copy_ms={row['copy_ms']:.4f} of_copy="
+                 f"{row['copy_ms'] / row['ms']:.4f}" if "copy_ms" in row
+                 else ""))
     del t, i, g, lr
     torch.cuda.empty_cache()
     return rows
+
+
+def scatter_sub_large_bucket(t, perm, rng, lr):
+    """K3 at 32 times the bucket (the shard does not cap a bucket's ids):
+    bit-equal to its plain version, then timed in turns with the library
+    call and the bare copy. Not in the kernels line."""
+    from brpc_tpu_torch.ops import embedding_rows as er
+
+    k = 32 * PS_K
+    ids = perm[(rng.zipf(PS_ZIPF, k) - 1) % PS_VOCAB].astype(np.int32)
+    i = torch.from_numpy(ids).cuda()
+    g = torch.randn((k, PS_DIM), device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(PS_SEED))
+    check(same_bits(er.scatter_sub(t, i, g, lr),
+                    er.scatter_sub_reference(t, i, g, lr)),
+          f"scatter_sub differs from its plain version at k={k}")
+    print(f"scatter_sub k={k}: {len(np.unique(ids))} distinct, most "
+          f"repeated x{np.unique(ids, return_counts=True)[1].max()}, "
+          "bit-equal to its plain version")
+    turns = in_turns(f"scatter_sub k={k}", {
+        "library": lambda: t.clone().index_add_(0, i, g, alpha=-PS_LR),
+        "copy": lambda: torch.empty_like(t).copy_(t),
+        "kernel": lambda: er.scatter_sub(t, i, g, lr)}, 5)
+    nbytes = 2 * t.numel() * 4 + k * 4 + g.numel() * 4 + 4
+    bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    print(f"scatter_sub k={k}: bound_ms={bound_ms:.4f} (bytes) "
+          f"of_bound={bound_ms / turns['kernel'][0]:.4f}")
+    del i, g
+    torch.cuda.empty_cache()
 
 
 def phase_ps_serve(table):
@@ -885,8 +947,10 @@ def main() -> int:
         "launches": ps_launches["gather_rows"], **ps_rows["gather_rows"]}, {
         "name": "scatter_sub", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:121",
-        "design": "StableHLO device program, not Pallas; ordered, a block "
-                  "per distinct id", "launches": ps_launches["scatter_sub"],
+        "design": "StableHLO device program, not Pallas; one pass over "
+                  "the table in 32 KB tiles, ids grouped and sorted per "
+                  "tile in shared memory",
+        "launches": ps_launches["scatter_sub"],
         **ps_rows["scatter_sub"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
