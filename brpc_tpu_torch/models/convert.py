@@ -1,10 +1,14 @@
-"""Load the reference's parameters into the port.
+"""Load the reference's parameters and tables into the port.
 
 ``params_from_jax`` takes the tree of ``brpc_tpu.models.llama.init_params``
 after the caller has turned each leaf into a numpy array (for example with
 ``jax.tree_util.tree_map(np.asarray, params)``), and returns the port's
 params dict: the same keys, shapes and values, in ``cfg.param_dtype`` on
 ``device``. Both sides store weights ``[in, out]``, so nothing is transposed.
+
+``embedding_from_reference`` takes the table of a reference
+``brpc_tpu.ps.EmbeddingShards`` as a numpy array and returns the port's
+``EmbeddingShards`` with the same values, row-sharded over the same axis.
 """
 
 from __future__ import annotations
@@ -13,6 +17,9 @@ import numpy as np
 import torch
 
 from brpc_tpu_torch.models.llama import LlamaConfig, Params, param_shapes
+from brpc_tpu_torch.parallel.mesh import PartitionSpec, axis_size, \
+    shard_batch
+from brpc_tpu_torch.ps import EmbeddingShards
 
 
 def params_from_jax(tree: Params, cfg: LlamaConfig,
@@ -37,3 +44,20 @@ def params_from_jax(tree: Params, cfg: LlamaConfig,
                                                  dtype=cfg.param_dtype)
 
     return convert(tree, param_shapes(cfg), "")
+
+
+def embedding_from_reference(table: np.ndarray, vocab: int, dim: int,
+                             axis: str, mesh) -> EmbeddingShards:
+    """The reference's f32 ``[vocab, dim]`` table, the same on every rank,
+    as the port's table row-sharded over ``axis`` of ``mesh`` (a
+    ``DeviceMesh``), each rank's rows on the mesh's device."""
+    array = np.asarray(table, dtype=np.float32)
+    if array.shape != (vocab, dim):
+        raise ValueError(f"want a table of shape {(vocab, dim)}, got "
+                         f"{array.shape}")
+    if vocab % axis_size(mesh, axis):
+        raise ValueError(f"vocab {vocab} not divisible by "
+                         f"{axis}={axis_size(mesh, axis)}")
+    return EmbeddingShards(
+        shard_batch(torch.from_numpy(array), PartitionSpec(axis, None), mesh),
+        vocab, dim, axis)

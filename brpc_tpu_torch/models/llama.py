@@ -21,6 +21,7 @@ when serving. That kernel is forward only, as the reference's is, so
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -182,7 +183,7 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     The embedding rows are gathered in the master dtype, then cast, so no
     compute-dtype copy of the whole table is made.
     """
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = params["embed"][_clamped_ids(tokens, cfg.vocab_size)].to(cfg.dtype)
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     # One unbind per stacked leaf: its backward stacks the layers' grads
@@ -196,13 +197,31 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     return (x @ params["lm_head"].to(cfg.dtype)).float()
 
 
+def _clamped_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """jnp's rule for an index into ``n`` rows: a negative id counts from
+    the end, then the id is clamped into ``[0, n)``. Out-of-vocabulary
+    tokens read a real row, as the reference's, and never reach a
+    device-side bounds check."""
+    ids = ids.long()
+    return torch.where(ids < 0, ids + n, ids).clamp_(0, n - 1)
+
+
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
             attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
-    """Next-token cross-entropy (last position predicts nothing)."""
+    """Next-token cross-entropy (last position predicts nothing).
+
+    A target outside ``[-vocab, vocab)`` gives NaN, as the fill of the
+    reference's ``jnp.take_along_axis`` does; a negative one in range
+    counts from the end."""
     logits = forward(params, tokens, cfg, attn_fn)[:, :-1]
     targets = tokens[:, 1:].long()
+    vocab = logits.shape[-1]
+    targets = torch.where(targets < 0, targets + vocab, targets)
+    inside = (targets >= 0) & (targets < vocab)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None]).squeeze(-1)
+    gold = torch.gather(logits, -1,
+                        targets.clamp(0, vocab - 1)[..., None]).squeeze(-1)
+    gold = torch.where(inside, gold, torch.full_like(gold, math.nan))
     return torch.mean(logz - gold)
 
 

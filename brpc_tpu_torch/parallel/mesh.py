@@ -1,0 +1,185 @@
+"""Device-mesh construction and sharding helpers, the port of
+``brpc_tpu/parallel/mesh.py``.
+
+The reference names the parallelism dimensions as the axes of a
+``jax.sharding.Mesh``; here they are the named dimensions of a
+``torch.distributed.device_mesh.DeviceMesh`` over the ranks of the default
+process group, one rank a device:
+
+- dp: data parallel (ParallelChannel fan-out + merge == grad allreduce)
+- tp: tensor parallel (PartitionChannel's N/M sharding)
+- sp: sequence parallel
+- pp: pipeline parallel
+- ps: the parameter server's row-sharded tables (``brpc_tpu_torch.ps``)
+
+The reference's ``_compat.shard_map`` has no counterpart. A ``shard_map``
+body of the reference becomes explicit code that each rank runs on its own
+shard (``DTensor.to_local()``), with its collectives on the process group
+of the mesh axis it names (``mesh.get_group(axis)``): see
+``collective_channel.py`` and ``ps.py``.
+
+A sharded tensor is a ``DTensor``: ``PartitionSpec`` entries map to
+``Shard(dim)`` on the mesh dimensions they name and ``Replicate()`` on the
+others. ``jax.sharding`` may not be imported here, so ``PartitionSpec`` is
+the port's own twin.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import Placement
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dimension: ``None`` (not sharded), a mesh axis
+    name, or a tuple of names (sharded over their product, major first),
+    as ``jax.sharding.PartitionSpec``, which also reads a tuple of one
+    name as that name and an empty tuple as ``None``."""
+
+    def __new__(cls, *entries):
+        def canonical(entry):
+            if isinstance(entry, (tuple, list)):
+                return tuple(entry) if len(entry) > 1 else \
+                    (entry[0] if entry else None)
+            return entry
+        return super().__new__(cls, (canonical(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def init_world(store_dir: str, rank: int, world_size: int,
+               device_type: str = "cuda") -> None:
+    """Joins this process to a default process group of ``world_size``
+    ranks that meet through a ``FileStore`` in ``store_dir``, so no TCP
+    port is taken: NCCL for ``cuda``, gloo for ``cpu``. On ``cuda`` the
+    rank's card is ``rank % device_count``."""
+    if device_type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    store = dist.FileStore(os.path.join(store_dir, "store"), world_size)
+    dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
+                            store=store, rank=rank, world_size=world_size)
+
+
+def make_mesh(axis_sizes: Optional[Dict[str, int]] = None, *,
+              device_type: str = "cuda") -> DeviceMesh:
+    """A mesh over every rank of the default process group. An unnamed
+    leading 'dp' absorbs the ranks the named axes leave over.
+
+    make_mesh({'tp': 4}) on 8 ranks -> mesh (dp=2, tp=4).
+    make_mesh() -> every rank on 'dp'.
+    """
+    n = dist.get_world_size()
+    axis_sizes = dict(axis_sizes or {})
+    named = math.prod(axis_sizes.values())
+    if n % named != 0:
+        raise ValueError(f"{n} devices not divisible by axes {axis_sizes}")
+    if "dp" not in axis_sizes:
+        axis_sizes = {"dp": n // named, **axis_sizes}
+    elif named != n:
+        raise ValueError(f"axes {axis_sizes} do not cover {n} devices")
+    return init_device_mesh(device_type, tuple(axis_sizes.values()),
+                            mesh_dim_names=tuple(axis_sizes))
+
+
+def axis_size(mesh: DeviceMesh, axis: str) -> int:
+    """The number of ranks along ``axis``, as ``mesh.shape[axis]`` in
+    the reference."""
+    if axis not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"mesh has no axis {axis!r}: "
+                         f"{mesh.mesh_dim_names}")
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _norm_spec(spec: PartitionSpec, mesh) -> PartitionSpec:
+    """Drop mesh axes the mesh doesn't have (lets one spec table serve
+    dp-only and dp+tp meshes)."""
+    names = set(mesh.mesh_dim_names or ())
+
+    def keep(entry):
+        if entry is None:
+            return None
+        if isinstance(entry, (tuple, list)):
+            kept = tuple(e for e in entry if e in names)
+            return kept if kept else None
+        return entry if entry in names else None
+
+    return PartitionSpec(*(keep(e) for e in spec))
+
+
+def _placements(spec: PartitionSpec, mesh: DeviceMesh,
+               ndim: int) -> List[Placement]:
+    """The DTensor placements, one per mesh dimension, of a tensor of
+    ``ndim`` dimensions laid out by ``spec`` (axes the mesh lacks
+    dropped)."""
+    spec = _norm_spec(spec, mesh)
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than the tensor's "
+                         f"{ndim} dimensions")
+    names = list(mesh.mesh_dim_names)
+    out: List[Placement] = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        where = [names.index(a) for a in axes]
+        if where != sorted(where):
+            raise ValueError(f"spec entry {entry} is not in the mesh's "
+                             f"axis order {tuple(names)}")
+        for i in where:
+            if out[i] != Replicate():
+                raise ValueError(f"mesh axis {names[i]!r} used twice in "
+                                 f"{spec}")
+            out[i] = Shard(dim)
+    return out
+
+
+def _put(t: torch.Tensor, spec: PartitionSpec, mesh: DeviceMesh) -> DTensor:
+    """Every rank holds the same full ``t`` (built from the same seed) and
+    keeps a copy of its own shard on the mesh's device: no data moves
+    between ranks. A sharded dimension must divide evenly."""
+    where = _placements(spec, mesh, t.dim())
+    local = t
+    for i, (p, at) in enumerate(zip(where, mesh.get_coordinate())):
+        if isinstance(p, Shard):
+            size, parts = local.shape[p.dim], mesh.size(i)
+            if size % parts:
+                raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not "
+                                 f"split into {parts} shards")
+            local = local.narrow(p.dim, at * (size // parts), size // parts)
+    local = local.to(mesh.device_type, copy=True).contiguous()
+    return DTensor.from_local(local, mesh, where, shape=t.shape,
+                              stride=contiguous_stride(t.shape))
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    stride, step = [], 1
+    for size in reversed(shape):
+        stride.append(step)
+        step *= size
+    return tuple(reversed(stride))
+
+
+def shard_params(params, specs, mesh: DeviceMesh):
+    """A param tree (nested dicts) with each leaf laid out by its
+    PartitionSpec in ``specs``, as DTensors on the mesh's device."""
+    if isinstance(specs, PartitionSpec):
+        return _put(params, specs, mesh)
+    if not isinstance(specs, dict) or not isinstance(params, dict) \
+            or set(specs) != set(params):
+        raise ValueError(f"specs {specs!r} do not match the params' keys")
+    return {key: shard_params(params[key], specs[key], mesh)
+            for key in params}
+
+
+def shard_batch(batch: torch.Tensor, spec: PartitionSpec,
+                mesh: DeviceMesh) -> DTensor:
+    return _put(batch, spec, mesh)

@@ -9,6 +9,7 @@ wait-free socket transport and cluster layer. Payloads are bytes; structure
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -64,8 +65,16 @@ class NativeCoreUnavailable(RuntimeError):
 
 
 def _build_dir() -> str:
+    """Where the port builds and finds its own copy of the native core:
+    never the reference's ``cpp/build/``, which the reference's loader
+    builds with cmake."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "_build", "native")
+
+
+def _source_dir() -> str:
     return os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "cpp", "build")
+        os.path.abspath(__file__))), "cpp")
 
 
 def native_core_available() -> bool:
@@ -85,15 +94,20 @@ native_build: Optional[dict] = None
 
 def _load_inner():
     global native_build
-    so = os.path.join(_build_dir(), "libbrpc_tpu_c.so")
-    if not os.path.exists(so):
-        build = _build_dir()
-        os.makedirs(build, exist_ok=True)
-        t0 = time.monotonic()
-        _build_with_gxx(os.path.dirname(build), so)
-        native_build = {"toolchain": "g++",
-                        "seconds": time.monotonic() - t0}
-    return ctypes.CDLL(so)
+    build = _build_dir()
+    so = os.path.join(build, "libbrpc_tpu_c.so")
+    os.makedirs(build, exist_ok=True)
+    # _load_mu orders this process's threads; the file lock orders
+    # processes (test workers, a second program in the checkout): one
+    # builds, the rest wait and load its finished library.
+    with open(os.path.join(build, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            t0 = time.monotonic()
+            _build_with_gxx(_source_dir(), so)
+            native_build = {"toolchain": "g++",
+                            "seconds": time.monotonic() - t0}
+        return ctypes.CDLL(so)
 
 
 def _system_lib(*names: str) -> str:

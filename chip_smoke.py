@@ -54,7 +54,20 @@ is fatal when it fails:
    live after the server closes. Latency, MB/s, peak memory and one
    request's split between staging, kernel, fetch and the rest (RPC and
    host work); then ``PS_THREADS`` client threads at once, each on its own
-   rows, with the same exact ledger.
+   rows, with the same exact ledger;
+9. the collective PS tier at that table: ``brpc_tpu_torch.ps`` on a mesh
+   (``make_mesh({"ps": 1})``) over an NCCL world of one process that meets
+   through a ``FileStore``. With the kernels' counts at 0: one ``lookup``
+   (bit-equal to the host's ``table[ids]``, one K2 launch), one
+   ``apply_gradients`` (bit-equal to ``np.subtract.at``, one K3 launch)
+   and ``PS_TRAIN_STEPS`` steps of ``make_ps_train_step`` (one K2 and one
+   K3 launch each; a finite loss that falls; the first step's table
+   against a host replay within ``PS_STEP_RTOL``). Then the backward's K3
+   call against its plain version, each ``CollectiveChannel`` op against
+   its definition, ``allreduce_benchmark`` at ``ALLREDUCE_MB`` (labelled
+   with its world size: on one card its bandwidth is 0 by construction),
+   the medians of ``PS_TIMED_CALLS`` calls of each entry point with the
+   peak memory, and one call of each under ``torch.profiler``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -127,6 +140,13 @@ PS_VOCAB, PS_DIM, PS_K = 128256, 4096, 2048
 PS_ZIPF, PS_LR, PS_SEED = 1.1, 0.05, 0
 PS_PAIRS = 8  # timed Lookup/ApplyGrad pairs, one request at a time
 PS_THREADS, PS_THREAD_PAIRS = 4, 3  # the concurrent stretch
+# The collective PS tier (``brpc_tpu_torch.ps`` on a mesh) at the same table
+# and ids: train steps on the main run, timed calls of each entry point, and
+# the allreduce benchmark's size (the reference's default).
+PS_TRAIN_STEPS, PS_TIMED_CALLS, ALLREDUCE_MB = 5, 10, 64.0
+# The first train step's table against a host replay in f32: the same
+# products and sums, the mean's gradient rounded where torch rounds it.
+PS_STEP_RTOL = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -222,7 +242,8 @@ def phase_build():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip())
+    card = smi.stdout.strip()
+    print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
@@ -234,6 +255,7 @@ def phase_build():
     for log in logs.values():
         for line in ptxas_report(log):
             print(f"ptxas {line}")
+    return card
 
 
 def build_native_core():
@@ -331,6 +353,22 @@ def phase_tiny():
         print(f"tiny forward {str(dtype)[6:]}: card against CPU max |err| "
               f"{err:.3e} (bound {tol})")
         check(err <= tol, f"tiny forward {dtype}: {err} > {tol}")
+    # Ids past both ends of the vocabulary are clamped as jnp clamps them,
+    # on the card too (no device-side assert); such a target makes the
+    # loss NaN, as the reference's.
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    params = llama.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                               device="cpu")
+    tokens[0, 3], tokens[1, 10] = 600, -600
+    want = llama.forward(params, tokens, cfg)
+    on_card = tree_map(lambda t: t.cuda(), params)
+    got = llama.forward(on_card, tokens.cuda(), cfg).cpu()
+    loss = llama.loss_fn(on_card, tokens.cuda(), cfg).item()
+    err = (got - want).abs().max().item()
+    print(f"tiny forward with out-of-vocabulary ids: card against CPU max "
+          f"|err| {err:.3e} (bound 1e-4), loss {loss}")
+    check(err <= 1e-4 and math.isnan(loss),
+          f"out-of-vocabulary ids: {err}, loss {loss}")
 
 
 def phase_serve():
@@ -911,6 +949,186 @@ def serve_concurrently(server, emb, replay, remote_embedding, obs, er):
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
 
 
+def phase_ps_collective(table, card):
+    """The collective PS tier on an NCCL world of one; returns the kernels'
+    launches on its main run (lookup, apply, train steps)."""
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.parallel import init_world
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="ps-world-") as store:
+        t0 = time.perf_counter()
+        init_world(store, 0, 1, "cuda")
+        try:
+            return ps_collective(table, card, time.perf_counter() - t0)
+        finally:
+            dist.destroy_process_group()
+
+
+def ps_collective(table, card, init_s):
+    import torch.distributed as dist
+
+    from brpc_tpu_torch import ps
+    from brpc_tpu_torch.models.convert import embedding_from_reference
+    from brpc_tpu_torch.ops import embedding_rows as er
+    from brpc_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"ps": 1})
+    emb = embedding_from_reference(table, PS_VOCAB, PS_DIM, "ps", mesh)
+    rng = np.random.default_rng(PS_SEED + 3)
+    ids_np = zipf_ids(rng, rng.permutation(PS_VOCAB)).reshape(1, PS_K)
+    grads_np = rng.standard_normal((1, PS_K, PS_DIM)).astype(np.float32)
+    ids, grads = torch.from_numpy(ids_np).cuda(), torch.from_numpy(
+        grads_np).cuda()
+    targets = torch.zeros((1, PS_K, PS_DIM), device="cuda")
+    print(f"ps collective: NCCL world of {dist.get_world_size()} up in {init_s:.3f} "
+          f"s, mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)}, table "
+          f"{PS_VOCAB}x{PS_DIM} f32 row-sharded over 'ps', ids (1, {PS_K}) "
+          f"Zipf({PS_ZIPF}), {len(np.unique(ids_np))} distinct, lr {PS_LR}, "
+          f"MSE to zero targets")
+    step = ps.make_ps_train_step("ps", "dp", mesh, PS_LR)
+
+    for kernel in er.launches:
+        er.launches[kernel] = 0
+    rows = ps.lookup(emb, ids, mesh)
+    torch.cuda.synchronize()
+    check(er.launches == {"gather_rows": 1, "scatter_sub": 0},
+          f"lookup launches {er.launches}")
+    new = ps.apply_gradients(emb, ids, grads, mesh, lr=PS_LR).table
+    torch.cuda.synchronize()
+    check(er.launches == {"gather_rows": 1, "scatter_sub": 1},
+          f"apply_gradients launches {er.launches}")
+    losses, state, first = [], emb, None
+    for _ in range(PS_TRAIN_STEPS):
+        state, loss = step(state, ids, targets)
+        losses.append(loss.item())
+        if first is None:
+            first = state.table.to_local().cpu().numpy()
+    launches = dict(er.launches)
+    want = {"gather_rows": 1 + PS_TRAIN_STEPS,
+            "scatter_sub": 1 + PS_TRAIN_STEPS}
+    check(launches == want, f"ps collective launches {launches}, want {want}")
+    del state
+
+    check(rows.cpu().numpy().tobytes() == table[ids_np].tobytes(),
+          "ps.lookup differs from the host's table[ids]")
+    host = table.copy()
+    np.subtract.at(host, ids_np.ravel(),
+                   np.float32(PS_LR) * grads_np.reshape(-1, PS_DIM))
+    check(new.to_local().cpu().numpy().tobytes() == host.tobytes(),
+          "ps.apply_gradients differs from np.subtract.at")
+    del rows, new, host
+    print(f"ps collective: lookup bit-equal to table[ids], apply_gradients "
+          f"bit-equal to np.subtract.at; main run launches {launches}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"ps train losses {losses}")
+    err, differ = ps_step_replay(table, ids_np, first)
+    del first
+    print(f"ps collective: {PS_TRAIN_STEPS} train steps, losses "
+          f"{' '.join(f'{x:.9g}' for x in losses)}; first step's table "
+          f"against the host replay max_abs_err={err:.3e}, {differ} "
+          f"elements differ (rtol {PS_STEP_RTOL})")
+    backward_against_plain(emb, ids, mesh)
+    channel_ops(mesh)
+    timed = {
+        "lookup": lambda: ps.lookup(emb, ids, mesh),
+        "apply_gradients": lambda: ps.apply_gradients(
+            emb, ids, grads, mesh, lr=PS_LR),
+        "train_step": lambda: step(emb, ids, targets)}
+    medians = {}
+    for name, fn in timed.items():
+        fn()
+        torch.cuda.synchronize()
+        seconds = []
+        for _ in range(PS_TIMED_CALLS):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        medians[name] = (statistics.median(seconds), min(seconds),
+                         max(seconds))
+    print(f"ps collective on {card}: " + " ".join(
+        f"{name}_ms median={m * 1e3:.3f} min={lo * 1e3:.3f} "
+        f"max={hi * 1e3:.3f}" for name, (m, lo, hi) in medians.items())
+        + f" ({PS_TIMED_CALLS} calls each) peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    for name, fn in timed.items():
+        profile_run(f"ps collective {name}", fn)
+    return launches
+
+
+def ps_step_replay(table, ids_np, got):
+    """The first train step on the host in f32: the MSE's gradient as
+    torch rounds it (1/N times 2·(pred - 0)), summed into each row in batch
+    order, then the table less lr times it. Returns (max |got - want|, the
+    number of elements that differ)."""
+    pred = table[ids_np.ravel()]
+    n = np.float32(1.0 / pred.size)
+    grad = np.zeros_like(table)
+    np.add.at(grad, ids_np.ravel(), n * (np.float32(2.0) * pred))
+    want = table - np.float32(PS_LR) * grad
+    err = float(np.abs(got - want).max())
+    differ = int(np.count_nonzero(got != want))
+    check(np.allclose(got, want, rtol=PS_STEP_RTOL, atol=0.0),
+          f"first train step: max |err| {err} beyond rtol {PS_STEP_RTOL}")
+    return err, differ
+
+
+def backward_against_plain(emb, ids, mesh):
+    """``lookup``'s backward is K3 on a zero shard with lr = -1: that call
+    against K3's plain version on the same inputs, bit for bit (not in the
+    main run's counts)."""
+    from brpc_tpu_torch import ps
+    from brpc_tpu_torch.ops import embedding_rows as er
+
+    table = emb.table.detach().requires_grad_(True)
+    g = torch.randn((1, PS_K, PS_DIM), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(PS_SEED))
+    (got,) = torch.autograd.grad(ps.lookup(
+        emb._replace(table=table), ids, mesh), table, g)
+    got = got.to_local()
+    want = er.scatter_sub_reference(
+        torch.zeros_like(got), ids.reshape(-1),
+        g.reshape(PS_K, PS_DIM).contiguous(),
+        torch.tensor(-1.0, device="cuda"))
+    torch.cuda.synchronize()
+    check(same_bits(got, want),
+          "lookup's backward (K3, lr -1) differs from its plain version")
+    print("ps collective: lookup's backward (K3 on a zero shard, lr -1) "
+          "bit-equal to K3's plain version")
+
+
+def channel_ops(mesh):
+    """Each ``CollectiveChannel`` op on the card against its definition on
+    a world of one, then ``allreduce_benchmark``."""
+    from brpc_tpu_torch.parallel import CollectiveChannel, allreduce_benchmark
+
+    chan = CollectiveChannel(mesh, "ps")
+    x = torch.arange(64, dtype=torch.float32, device="cuda").reshape(8, 8)
+    cases = {
+        **{f"all_reduce_{op}": (chan.all_reduce(x, op), x.sum(0))
+           for op in ("sum", "max", "min")},
+        "all_reduce_inplace": (chan.all_reduce_inplace(x), x),
+        "all_gather": (chan.all_gather(x), x),
+        "reduce_scatter": (chan.reduce_scatter(x).full_tensor(), x),
+        "broadcast": (chan.broadcast(x, 0), x),
+        "shift": (chan.shift(x, 1).full_tensor(), x),
+        "map_reduce": (chan.map_reduce(lambda s: (s * 2).sum(), x),
+                       (x * 2).sum())}
+    for name, (got, want) in cases.items():
+        check(torch.equal(got, want), f"CollectiveChannel.{name} on the card")
+    bench = allreduce_benchmark(mesh, "ps", size_mb=ALLREDUCE_MB)
+    print(f"ps collective: CollectiveChannel {sorted(cases)} equal their "
+          f"definitions on a world of {chan.num_channels}; "
+          f"allreduce_benchmark {ALLREDUCE_MB} MB: world_size="
+          f"{bench['world_size']} devices={bench['devices']} bytes="
+          f"{bench['bytes']} ms={bench['seconds'] * 1e3:.4f} "
+          f"gbps_per_chip={bench['gbps_per_chip']} (0 by construction on "
+          f"one rank: not a link speed)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -920,7 +1138,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: off for matmul and cudnn")
 
-    phase_build()
+    card = phase_build()
     rows = phase_kernels()
     t0 = time.perf_counter()
     table = seeded_table()
@@ -932,6 +1150,7 @@ def main() -> int:
     phase_tiny_train()
     phase_train()
     ps_launches = phase_ps_serve(table)
+    collective = phase_ps_collective(table, card)
 
     b, t = REQUESTS[0]
     row = rows[(b, t, torch.bfloat16, True)]
@@ -944,13 +1163,18 @@ def main() -> int:
         "name": "gather_rows", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:100",
         "design": "StableHLO device program, not Pallas; a block per id",
-        "launches": ps_launches["gather_rows"], **ps_rows["gather_rows"]}, {
+        "launches": ps_launches["gather_rows"] + collective["gather_rows"],
+        "launches_by_path": {"ps_serve": ps_launches["gather_rows"],
+                             "ps_collective": collective["gather_rows"]},
+        **ps_rows["gather_rows"]}, {
         "name": "scatter_sub", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:121",
         "design": "StableHLO device program, not Pallas; one pass over "
                   "the table in 32 KB tiles, ids grouped and sorted per "
                   "tile in shared memory",
-        "launches": ps_launches["scatter_sub"],
+        "launches": ps_launches["scatter_sub"] + collective["scatter_sub"],
+        "launches_by_path": {"ps_serve": ps_launches["scatter_sub"],
+                             "ps_collective": collective["scatter_sub"]},
         **ps_rows["scatter_sub"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

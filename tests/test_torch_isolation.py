@@ -43,7 +43,10 @@ def test_imports_pull_in_neither_jax_nor_reference():
             "brpc_tpu_torch.utils.checkpoint", "brpc_tpu_torch.device",
             "brpc_tpu_torch.ops.embedding_rows", "brpc_tpu_torch.rpc",
             "brpc_tpu_torch.ps_remote", "brpc_tpu_torch.durable",
-            "brpc_tpu_torch.reshard"} <= set(names.split())
+            "brpc_tpu_torch.reshard", "brpc_tpu_torch.parallel.mesh",
+            "brpc_tpu_torch.parallel.collective_channel",
+            "brpc_tpu_torch.ps", "brpc_tpu_torch.rebalance"} \
+        <= set(names.split())
     assert bad.strip() == "[]"
 
 

@@ -80,6 +80,47 @@ def test_forward_and_loss_match_reference(dtype, attn):
                                rtol=rtol)
 
 
+# Ids past either end of the tiny vocabulary (512): jnp counts a negative
+# id from the end and clamps the rest, so 600 and -600 read rows 511 and 0.
+# As targets, -5 counts from the end and 600 and -600 fill NaN.
+_OUT_OF_RANGE = ((0, 3, 600, 7), (1, 10, -1, 9), (1, 20, -600, 4),
+                 (0, 40, 511, 3), (1, 50, -512, 5), (0, 63, -5, 0))
+
+
+@pytest.mark.parametrize("targets_in_range", [True, False])
+def test_out_of_vocabulary_tokens_match_reference(targets_in_range):
+    """Tokens past the vocabulary on both sides: the port clamps them as
+    the reference's indexing does (logits equal at the forward's f32
+    tolerance), and a target outside the vocabulary makes the loss NaN in
+    both. With ``targets_in_range`` the odd ids sit only at the last
+    position, which no target reads, so the loss is finite in both."""
+    ref_cfg, cfg = _configs("f32")
+    _, _, atol, rtol = _DTYPES["f32"]
+    tokens = _tokens()
+    for b, t, bad, _ in _OUT_OF_RANGE:
+        tokens[b, 63 if targets_in_range else t] = bad
+    got_logits = llama.forward(_port_params(), torch.from_numpy(tokens), cfg)
+    got_loss = llama.loss_fn(_port_params(), torch.from_numpy(tokens), cfg)
+    want_logits, want_loss = jax.jit(lambda p, t: (
+        ref.forward(p, t, ref_cfg), ref.loss_fn(p, t, ref_cfg)))(
+            _ref_params(), jnp.asarray(tokens))
+    np.testing.assert_allclose(got_logits.numpy(), np.asarray(want_logits),
+                               atol=atol, rtol=rtol)
+    assert np.isnan(float(want_loss)) == (not targets_in_range)
+    np.testing.assert_allclose(got_loss.item(), float(want_loss), atol=atol,
+                               rtol=rtol, equal_nan=True)
+
+
+def test_out_of_vocabulary_ids_follow_jnp_indexing():
+    """ROADMAP's worked example: on 4 rows, ids 5, -1, -5 and -6 read rows
+    3, 3, 0 and 0, as jnp's gather does."""
+    ids = np.array([5, -1, -5, -6, -4, 4, 2], np.int32)
+    want = np.asarray(jnp.arange(4)[jnp.asarray(ids)])
+    got = llama._clamped_ids(torch.from_numpy(ids), 4).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:4], [3, 3, 0, 0])
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_rms_norm_and_rope_match_reference(dtype):
     jdt, tdt, _, _ = _DTYPES[dtype]

@@ -13,14 +13,19 @@ the programs are the plain versions of ``ops/embedding_rows.py``.
   yardstick: without a plugin its tests skip.
 - The reference's device scenarios (``tests/test_ps_device.py``: lookup,
   apply, a training round trip, the combiner's single launch, stream push,
-  failover, a fenced stale primary, checkpoint cold restart), translated:
-  the port's modules and a CPU client in place of the PJRT one.
+  failover, a fenced stale primary, checkpoint cold restart, a split
+  severed mid-copy, a split's shipper retargeted to a promoted backup, the
+  rebalancer's failback), translated: the port's modules (``reshard``'s
+  ``MigrationDriver``, ``rebalance``'s ``Rebalancer``) and a CPU client in
+  place of the PJRT one.
 - Marked ``cuda``: the same shard on the card against the shard on the CPU,
   bit for bit; it skips without a card.
 
-The two packages load one native core, whose globals (the drop hook, the
-flags) they share: tests that run both side by side install no fault plan,
-and a test that installs one clears it through the port's ``fault``. Every
+Each package loads its own build of the native core (the reference's
+``cpp/build/``, the port's ``brpc_tpu_torch/_build/native/``), each with its
+own globals (the drop hook, the flags): a test that runs both side by side
+talks to each side through that side's own ``rpc``, and a fault plan
+installed through the port's ``fault`` reaches only the port's servers. Every
 test ends with no net growth of the port's handle ledger, except where the
 module-scoped shard fills its executable cache, as in the reference.
 """
@@ -38,10 +43,14 @@ from brpc_tpu_torch import fault, obs, resilience, rpc
 from brpc_tpu_torch.analysis import handles
 from brpc_tpu_torch.device import DeviceClient
 from brpc_tpu_torch.durable import CheckpointStore
-from brpc_tpu_torch.naming import ReplicaSet
+from brpc_tpu_torch.naming import (NamingClient, PartitionScheme,
+                                   ReplicaSet, publish_scheme)
 from brpc_tpu_torch.ops import embedding_rows as er
 from brpc_tpu_torch.ps_remote import (DevicePsShardServer, RemoteEmbedding,
                                       _pack_apply_req)
+from brpc_tpu_torch.rebalance import (RebalanceOptions, RebalancePolicy,
+                                      Rebalancer)
+from brpc_tpu_torch.reshard import MigrationDriver
 
 pytestmark = pytest.mark.needs_native
 
@@ -422,6 +431,193 @@ def test_device_checkpoint_cold_restart_bit_exact(tmp_path):
         store2.close()
         dev.close()
 
+
+
+# -- resharding and the rebalancer on the device tier ------------------------
+
+
+def test_device_split_severed_midcopy_recovers_byte_identical():
+    """A LIVE 1→2 split off a device-serving source with the handoff
+    plane of one destination severed mid-copy: the shipper backs off,
+    reconnects, resyncs the range wholesale, and after cutover the
+    destination DEVICE shards hold exactly the source's bytes — the
+    generation-pinned device snapshot feeding unchanged MigrateSync
+    framing."""
+    dev = DeviceClient(device="cpu")
+    src = DevicePsShardServer(VOCAB, DIM, 0, 1, lr=1.0,
+                              device_client=dev)
+    new = [DevicePsShardServer(VOCAB, DIM, s, 2, lr=1.0, importing=True,
+                               scheme_version=1, device_client=dev)
+           for s in range(2)]
+    sc0 = PartitionScheme(0, (ReplicaSet.of(src.address),))
+    sc1 = PartitionScheme(1, tuple(ReplicaSet.of(sv.address)
+                                   for sv in new))
+    emb = RemoteEmbedding([sc0], VOCAB, DIM, timeout_ms=10000,
+                          retry=_retry_policy())
+    ids = np.arange(VOCAB, dtype=np.int32)
+    before = src.table.copy()
+    drv = MigrationDriver(sc0, sc1, VOCAB)
+    try:
+        emb.apply_gradients(ids, np.full((VOCAB, DIM), 0.5, np.float32))
+        # the first 3 handoff attempts at destination 1 die mid-stream
+        fault.install(fault.FaultPlan(fault.partition_rules(
+            new[1].address, max_hits=3), seed=5))
+        drv.start()
+        emb.apply_gradients(ids, np.full((VOCAB, DIM), 0.25,
+                                         np.float32))
+        drv.wait_caught_up(deadline_s=30)
+        fault.clear()
+        drv.cutover()
+        # cutover's CompleteImport opened the destinations for
+        # business: device primaries stage their imported mirrors
+        # into device memory and serve the device path
+        assert all(sv._dev_serving for sv in new)
+        emb.set_schemes([sc0.with_(state="draining", weight=0.0), sc1])
+        emb.apply_gradients(ids, np.full((VOCAB, DIM), 0.125,
+                                         np.float32))
+        expect = before.copy()
+        for d in (0.5, 0.25, 0.125):
+            expect[ids] -= np.float32(d)
+        assert np.array_equal(
+            np.concatenate([sv.table for sv in new]), expect)
+        assert int(obs.counter(
+            "ps_migrate_connect_errors").get_value()) >= 1
+    finally:
+        fault.clear()
+        drv.close()
+        emb.close()
+        _close_all(src, *new)
+        dev.close()
+
+
+def test_device_split_shipper_retargets_to_promoted_dest_backup():
+    """Kill a REPLICATED destination's primary mid-split: the stranded
+    shipper sweeps the destination replica group (``ReplicaState``,
+    highest claiming epoch wins), re-points at the promoted backup and
+    resyncs wholesale — ``ps_migration_retargets`` counts the save and
+    the survivor converges byte-identical."""
+    dev = DeviceClient(device="cpu")
+    src = DevicePsShardServer(VOCAB, DIM, 0, 1, lr=1.0,
+                              device_client=dev)
+    dst_a = DevicePsShardServer(VOCAB, DIM, 0, 2, lr=1.0,
+                                importing=True, scheme_version=1,
+                                device_client=dev)
+    dst_b = DevicePsShardServer(VOCAB, DIM, 0, 2, lr=1.0,
+                                importing=True, scheme_version=1,
+                                device_client=dev)
+    dst_1 = DevicePsShardServer(VOCAB, DIM, 1, 2, lr=1.0,
+                                importing=True, scheme_version=1,
+                                device_client=dev)
+    rs0 = ReplicaSet((dst_a.address, dst_b.address), primary=0)
+    dst_a.configure_replication(rs0, 0)
+    dst_b.configure_replication(rs0, 1)
+    sc0 = PartitionScheme(0, (ReplicaSet.of(src.address),))
+    sc1 = PartitionScheme(1, (rs0, ReplicaSet.of(dst_1.address)))
+    emb = RemoteEmbedding([sc0], VOCAB, DIM, timeout_ms=10000,
+                          retry=_retry_policy())
+    ids = np.arange(VOCAB, dtype=np.int32)
+    retargets0 = int(obs.counter("ps_migration_retargets").get_value())
+    drv = MigrationDriver(sc0, sc1, VOCAB)
+    try:
+        emb.apply_gradients(ids, np.full((VOCAB, DIM), 0.5, np.float32))
+        drv.start()
+        drv.wait_caught_up(deadline_s=30)   # initial copy lands
+        # destination primary dies; the backup is promoted out-of-band
+        # (the rebalancer's job) — the fixed spec address now strands
+        # the shipper until the ReplicaState sweep re-points it
+        fault.install(fault.FaultPlan(
+            fault.kill_rules(dst_a.address), seed=7))
+        ch = rpc.Channel(dst_b.address, timeout_ms=5000)
+        try:
+            ch.call("Ps", "Promote", struct.pack("<q", 1))
+        finally:
+            ch.close()
+        assert dst_b.is_primary
+        emb.apply_gradients(ids, np.full((VOCAB, DIM), 0.25,
+                                         np.float32))
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline and int(obs.counter(
+                "ps_migration_retargets").get_value()) <= retargets0:
+            time.sleep(0.02)
+        assert int(obs.counter("ps_migration_retargets").get_value()) \
+            > retargets0
+        drv.wait_caught_up(deadline_s=30)
+        # the promoted backup holds the source's exact bytes for its
+        # range (wholesale resync: it never saw MigrateApply)
+        half = VOCAB // 2
+        src_now = src.table
+        assert np.array_equal(dst_b.table, src_now[:half])
+        assert np.array_equal(dst_1.table, src_now[half:])
+    finally:
+        fault.clear()
+        drv.abort()
+        drv.close()
+        emb.close()
+        _close_all(src, dst_a, dst_b, dst_1)
+        dev.close()
+
+
+def test_device_rebalancer_failback_restages_declared_primary():
+    """The rebalancer's autonomous failback on the device tier: a
+    usurped device-serving primary that came back as a host-mirror
+    backup is promoted back once caught up — and the fenced Promote
+    restages its mirror into device memory. The port's rebalance.py, a
+    copy of the reference's, needs no device knowledge: the same
+    ReplicaState freshness gate and Promote wire call drive both
+    tiers."""
+    dev = DeviceClient(device="cpu")
+    servers, rs = _device_pair(dev)
+    declared, usurper = servers
+    reg_server = rpc.Server()
+    reg_server.add_naming_registry()
+    reg_addr = f"127.0.0.1:{reg_server.start('127.0.0.1:0')}"
+    nc = NamingClient(reg_addr)
+    publish_scheme(nc, "ps", PartitionScheme(1, (rs,)))
+    for sv in servers:
+        nc.register("ps", sv.address, ttl_ms=500, tag_fn=sv.claim_tag)
+    reb = Rebalancer(reg_addr, "ps", VOCAB,
+                     policy=RebalancePolicy(RebalanceOptions(
+                         failback_sustain_s=0.0)))
+    ids = np.arange(8, dtype=np.int32)
+    grads = np.full((8, DIM), 0.5, np.float32)
+    try:
+        # failure-style promotion of the backup: it stages to the device
+        ch = rpc.Channel(usurper.address, timeout_ms=5000)
+        try:
+            ch.call("Ps", "Promote", struct.pack("<q", 1))
+            assert usurper.is_primary and usurper._dev_serving
+            # the declared primary learns it was usurped on the next
+            # propagation — poke with a write so the fence lands
+            ch.call("Ps", "ApplyGrad",
+                    bytes(_pack_apply_req(ids, grads)))
+        finally:
+            ch.close()
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline and (declared.is_primary
+                                               or declared._dev_serving):
+            time.sleep(0.02)
+        assert not declared.is_primary and not declared._dev_serving
+        fb0 = int(obs.counter("ps_failbacks").get_value())
+        decided = None
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline and decided is None:
+            decided = reb.step()
+            time.sleep(0.05)
+        assert decided is not None and decided.kind == "failback"
+        assert int(obs.counter("ps_failbacks").get_value()) == fb0 + 1
+        # failed back AND serving from device memory again
+        deadline = time.monotonic() + 5.0
+        while time.monotonic() < deadline and not (
+                declared.is_primary and declared._dev_serving):
+            time.sleep(0.02)
+        assert declared.is_primary and declared._dev_serving
+        assert declared.epoch >= 2
+    finally:
+        reb.stop()
+        nc.close()
+        _close_all(*servers)
+        reg_server.close()
+        dev.close()
 
 
 
