@@ -6,6 +6,9 @@ after the caller has turned each leaf into a numpy array (for example with
 params dict: the same keys, shapes and values, in ``cfg.param_dtype`` on
 ``device``. Both sides store weights ``[in, out]``, so nothing is transposed.
 
+``moe_params_from_jax`` does the same for the tree of
+``brpc_tpu.models.moe.init_moe_params``, f32 on ``device``.
+
 ``embedding_from_reference`` takes the table of a reference
 ``brpc_tpu.ps.EmbeddingShards`` as a numpy array and returns the port's
 ``EmbeddingShards`` with the same values, row-sharded over the same axis.
@@ -16,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from brpc_tpu_torch.models import moe
 from brpc_tpu_torch.models.llama import LlamaConfig, Params, param_shapes
 from brpc_tpu_torch.parallel.mesh import PartitionSpec, axis_size, \
     shard_batch
@@ -25,25 +29,32 @@ from brpc_tpu_torch.ps import EmbeddingShards
 def params_from_jax(tree: Params, cfg: LlamaConfig,
                     device: str | torch.device = "cuda") -> Params:
     """Copy a numpy tree in the reference layout to tensors on ``device``."""
+    return _convert(tree, param_shapes(cfg), cfg.param_dtype, device, "")
 
-    def convert(node, shape, where):
-        if isinstance(shape, dict):
-            if not isinstance(node, dict) or set(node) != set(shape):
-                got = sorted(node) if isinstance(node, dict) else type(node)
-                raise ValueError(f"{where or 'params'}: want keys "
-                                 f"{sorted(shape)}, got {got}")
-            return {key: convert(node[key], shape[key], f"{where}{key}.")
-                    for key in shape}
-        # float32 first: numpy has no bfloat16, and every bf16 value is
-        # exact in f32.
-        array = np.asarray(node, dtype=np.float32)
-        if array.shape != tuple(shape):
-            raise ValueError(f"{where[:-1]}: want shape {tuple(shape)}, got "
-                             f"{array.shape}")
-        return torch.from_numpy(array.copy()).to(device=device,
-                                                 dtype=cfg.param_dtype)
 
-    return convert(tree, param_shapes(cfg), "")
+def moe_params_from_jax(tree: Params, cfg: moe.MoeConfig,
+                        device: str | torch.device = "cuda") -> Params:
+    """The reference's MoE params (numpy leaves) as f32 tensors on
+    ``device``."""
+    return _convert(tree, moe.moe_param_shapes(cfg), torch.float32, device,
+                    "")
+
+
+def _convert(node, shape, dtype, device, where):
+    if isinstance(shape, dict):
+        if not isinstance(node, dict) or set(node) != set(shape):
+            got = sorted(node) if isinstance(node, dict) else type(node)
+            raise ValueError(f"{where or 'params'}: want keys "
+                             f"{sorted(shape)}, got {got}")
+        return {key: _convert(node[key], shape[key], dtype, device,
+                              f"{where}{key}.") for key in shape}
+    # float32 first: numpy has no bfloat16, and every bf16 value is exact
+    # in f32.
+    array = np.asarray(node, dtype=np.float32)
+    if array.shape != tuple(shape):
+        raise ValueError(f"{where[:-1]}: want shape {tuple(shape)}, got "
+                         f"{array.shape}")
+    return torch.from_numpy(array.copy()).to(device=device, dtype=dtype)
 
 
 def embedding_from_reference(table: np.ndarray, vocab: int, dim: int,

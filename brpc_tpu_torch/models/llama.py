@@ -16,6 +16,10 @@ give the same logits:
 ``brpc_tpu_torch.ops.flash_attention.flash_attention`` for the CUDA kernel
 when serving. That kernel is forward only, as the reference's is, so
 ``make_train_step`` trains with dense attention (``attn_fn=None``).
+
+The same body runs one rank's share of a model sharded over a (dp, tp,
+sp) mesh (``forward``'s ``ranks``): its collectives are the identity
+where the group has one rank.
 """
 
 from __future__ import annotations
@@ -26,8 +30,11 @@ from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
+from brpc_tpu_torch.parallel import functional as pf
+from brpc_tpu_torch.parallel.mesh import PartitionSpec as P, Ranks
 from brpc_tpu_torch.utils.tree import tree_map
 
 Params = Dict[str, object]
@@ -119,6 +126,26 @@ def init_params(cfg: LlamaConfig, *, generator: torch.Generator,
     }
 
 
+def param_specs(cfg: LlamaConfig) -> Params:
+    """PartitionSpecs for each param over mesh axes ('dp', 'tp'), the
+    reference's Megatron layout: the attention's and the MLP's first
+    products column-sharded over 'tp', their second products row-sharded,
+    the embedding and the LM head sharded by vocabulary. ``make_train_step``
+    runs per-rank tensor-parallel code on params laid out by them."""
+    column, row, whole = P(None, None, "tp"), P(None, "tp", None), \
+        P(None, None)
+    layers = {"wq": column, "wk": column, "wv": column, "wo": row,
+              "w_gate": column, "w_up": column, "w_down": row,
+              "attn_norm": whole, "mlp_norm": whole}
+    return {"embed": P("tp", None), "layers": layers,
+            "final_norm": P(None), "lm_head": P(None, "tp")}
+
+
+def batch_specs() -> P:
+    """Token batches are sharded over the data-parallel axis."""
+    return P("dp", None)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """Reduce in f32, cast to x's dtype, then scale by w in that dtype."""
     x32 = x.float()
@@ -161,40 +188,68 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
-           positions: torch.Tensor,
-           attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+           positions: torch.Tensor, attn_fn: Optional[AttnFn] = None,
+           tp=None) -> torch.Tensor:
+    """One decoder layer. With a 'tp' group, ``lp`` holds this rank's
+    Megatron shards: the heads and the MLP's intermediate columns it owns
+    (column-parallel products after ``copy_to``), and the matching rows of
+    ``wo`` and ``w_down`` (``row_parallel``)."""
     b, t, _ = x.shape
-    y = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (y @ lp["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = (y @ lp["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (y @ lp["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    y = pf.copy_to(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
+    q = (y @ lp["wq"]).reshape(b, t, -1, cfg.head_dim)
+    k = (y @ lp["wk"]).reshape(b, t, -1, cfg.head_dim)
+    v = (y @ lp["wv"]).reshape(b, t, -1, cfg.head_dim)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     attend = attn_fn if attn_fn is not None else attention
-    x = x + attend(q, k, v) @ lp["wo"]
-    y = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + (F.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])) @ lp["w_down"]
+    x = x + pf.row_parallel(attend(q, k, v), lp["wo"], tp)
+    y = pf.copy_to(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), tp)
+    return x + pf.row_parallel(F.silu(y @ lp["w_gate"]) * (y @ lp["w_up"]),
+                               lp["w_down"], tp)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-            attn_fn: Optional[AttnFn] = None) -> torch.Tensor:
+            attn_fn: Optional[AttnFn] = None,
+            ranks: Ranks = Ranks()) -> torch.Tensor:
     """tokens: [B, T] integer -> logits [B, T, vocab] float32.
 
     The embedding rows are gathered in the master dtype, then cast, so no
     compute-dtype copy of the whole table is made.
+
+    ``ranks`` other than ``Ranks()`` make this one rank's share of the
+    model sharded by ``param_specs`` (``parallel.tensor_parallel``):
+    ``params`` are its local shards, ``tokens`` its block of the batch and
+    of the sequence (its positions start at ``sp_index·T``), and the
+    logits its rows, whole over the vocabulary.
     """
-    x = params["embed"][_clamped_ids(tokens, cfg.vocab_size)].to(cfg.dtype)
+    x = _embed(params["embed"], _clamped_ids(tokens, cfg.vocab_size),
+               ranks).to(cfg.dtype)
     b, t = tokens.shape
-    positions = torch.arange(t, device=tokens.device).expand(b, t)
+    positions = (ranks.sp_index * t
+                 + torch.arange(t, device=tokens.device)).expand(b, t)
     # One unbind per stacked leaf: its backward stacks the layers' grads
     # once, where indexing w[i] would add a zero-filled gradient of the
     # whole stack for every layer.
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
     for i in range(cfg.n_layers):
         lp = {name: ws[i].to(cfg.dtype) for name, ws in layers.items()}
-        x = _layer(cfg, x, lp, positions, attn_fn)
+        x = _layer(cfg, x, lp, positions, attn_fn, ranks.tp)
     x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
-    return (x @ params["lm_head"].to(cfg.dtype)).float()
+    head = pf.copy_to(x, ranks.tp) @ params["lm_head"].to(cfg.dtype)
+    return pf.gather_from(head, ranks.tp).float()
+
+
+def _embed(table: torch.Tensor, ids: torch.Tensor,
+           ranks: Ranks) -> torch.Tensor:
+    """``table[ids]``. A table sharded by vocabulary over 'tp' gives its
+    owner's row and zeros on the other ranks, summed over 'tp'."""
+    if ranks.tp is None:
+        return table[ids]
+    rows = table.shape[0]
+    local = ids - ranks.tp_index * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].masked_fill(~mine[..., None], 0)
+    return pf.reduce_from(x, ranks.tp)
 
 
 def _clamped_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -214,7 +269,14 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     reference's ``jnp.take_along_axis`` does; a negative one in range
     counts from the end."""
     logits = forward(params, tokens, cfg, attn_fn)[:, :-1]
-    targets = tokens[:, 1:].long()
+    return torch.mean(token_losses(logits, tokens[:, 1:]))
+
+
+def token_losses(logits: torch.Tensor,
+                 targets: torch.Tensor) -> torch.Tensor:
+    """``logsumexp(logits) - logits[target]`` at each position, f32, with
+    ``loss_fn``'s rule for targets out of range."""
+    targets = targets.long()
     vocab = logits.shape[-1]
     targets = torch.where(targets < 0, targets + vocab, targets)
     inside = (targets >= 0) & (targets < vocab)
@@ -222,7 +284,7 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     gold = torch.gather(logits, -1,
                         targets.clamp(0, vocab - 1)[..., None]).squeeze(-1)
     gold = torch.where(inside, gold, torch.full_like(gold, math.nan))
-    return torch.mean(logz - gold)
+    return logz - gold
 
 
 def trainable(params: Params) -> Params:
@@ -243,13 +305,28 @@ def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
     returns the loss of the params it was given, a detached f32 scalar. The
     gradients are freed before it returns, so a step holds one gradient
     tree at its peak.
+
+    As in the reference, the params' layout makes the step sharded: params
+    laid out by ``param_specs`` as DTensors on a mesh with axes among
+    ('dp', 'tp', 'sp') run ``parallel.tensor_parallel.loss_and_grads``,
+    per-rank Megatron code over that mesh (tokens laid out by
+    ``batch_specs``, or ``P('dp', 'sp')`` with sequence parallelism). It
+    raises ``ValueError`` where 'tp' does not divide the KV heads, the
+    vocabulary or the intermediate width.
     """
 
     def step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         try:
-            loss = loss_fn(params, tokens, cfg, attn_fn)
-            loss.backward()
+            if isinstance(params["embed"], DTensor):
+                # imported here: tensor_parallel imports this module
+                from brpc_tpu_torch.parallel import tensor_parallel
+
+                loss = tensor_parallel.loss_and_grads(params, tokens, cfg,
+                                                      attn_fn)
+            else:
+                loss = loss_fn(params, tokens, cfg, attn_fn)
+                loss.backward()
             optimizer.step()
         finally:
             optimizer.zero_grad(set_to_none=True)

@@ -7,7 +7,9 @@ the same update (its weight decay defaults to 1e-2, so it is set here).
 ``sgd`` is ``optax.sgd(learning_rate)``: no momentum.
 
 Both take a params tree (``models.llama.trainable``) and number its leaves
-in ``tree_leaves`` order. The optimizer is no TPU kernel (optax is XLA), so
+in ``tree_leaves`` order. The leaves of a sharded step are DTensors; each
+rank's update then runs on its own shards, and since both updates are
+elementwise the whole is the reference's update of the global params. The optimizer is no TPU kernel (optax is XLA), so
 torch's own implementation runs it: the fused one when the leaves are on
 CUDA (one pass over each tensor list), the default one on the CPU.
 """

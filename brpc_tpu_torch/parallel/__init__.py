@@ -1,6 +1,8 @@
-"""The port's collective tier: meshes over torch.distributed and the
-CollectiveChannel. Exports only what is ported; ``ring``, ``pipeline`` and
-the sharded train step are still to come (ROADMAP.md)."""
+"""The port's parallel tier: meshes over torch.distributed, the
+CollectiveChannel, ring and Ulysses attention, and the pipeline. The
+sharded Llama train step is ``models.llama.make_train_step`` on params
+laid out by ``param_specs`` (its per-rank code: ``tensor_parallel``); the
+expert-parallel MoE layer is ``models.moe``."""
 
 from brpc_tpu_torch.parallel.mesh import (  # noqa: F401
     PartitionSpec,
@@ -13,3 +15,8 @@ from brpc_tpu_torch.parallel.collective_channel import (  # noqa: F401
     CollectiveChannel,
     allreduce_benchmark,
 )
+from brpc_tpu_torch.parallel.ring import (  # noqa: F401
+    ring_attention,
+    ulysses_attention,
+)
+from brpc_tpu_torch.parallel.pipeline import pipeline_apply  # noqa: F401

@@ -26,6 +26,7 @@ the port's own twin.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 from typing import Dict, List, Optional
@@ -98,6 +99,58 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
+def axis_group(mesh: DeviceMesh, axis: Optional[str]):
+    """The process group of ``axis``, or None where the mesh lacks the axis
+    or the axis has one rank (then there is nothing to send)."""
+    names = mesh.mesh_dim_names or ()
+    if axis not in names or mesh.size(names.index(axis)) == 1:
+        return None
+    return mesh.get_group(axis)
+
+
+def axis_index(mesh: DeviceMesh, axis: Optional[str]) -> int:
+    """This rank's position along ``axis`` (0 where the mesh lacks it), as
+    ``lax.axis_index``."""
+    if axis not in (mesh.mesh_dim_names or ()):
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class Ranks:
+    """The mesh as one rank's per-rank code sees it: the process group of
+    each of the axes 'dp', 'tp' and 'sp' (None for one rank or no such
+    axis) and this rank's index on 'tp' and 'sp'. ``Ranks()`` is one rank
+    that holds the whole model and the whole batch."""
+
+    mesh: Optional[DeviceMesh] = None
+    dp: object = None
+    tp: object = None
+    sp: object = None
+    tp_index: int = 0
+    sp_index: int = 0
+
+    @staticmethod
+    def of(mesh: DeviceMesh) -> "Ranks":
+        return Ranks(mesh, axis_group(mesh, "dp"), axis_group(mesh, "tp"),
+                     axis_group(mesh, "sp"), axis_index(mesh, "tp"),
+                     axis_index(mesh, "sp"))
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.tp is None else dist.get_world_size(self.tp)
+
+    @property
+    def sp_size(self) -> int:
+        return 1 if self.sp is None else dist.get_world_size(self.sp)
+
+    def spec(self, *axes: Optional[str]) -> PartitionSpec:
+        """A spec over these axes, with None for an axis of one rank: such
+        an axis holds the whole dimension, so no collective moves it."""
+        return PartitionSpec(*(a if axis_group(self.mesh, a) is not None
+                               else None for a in axes))
+
+
 def _norm_spec(spec: PartitionSpec, mesh) -> PartitionSpec:
     """Drop mesh axes the mesh doesn't have (lets one spec table serve
     dp-only and dp+tp meshes)."""
@@ -141,11 +194,10 @@ def _placements(spec: PartitionSpec, mesh: DeviceMesh,
     return out
 
 
-def _put(t: torch.Tensor, spec: PartitionSpec, mesh: DeviceMesh) -> DTensor:
-    """Every rank holds the same full ``t`` (built from the same seed) and
-    keeps a copy of its own shard on the mesh's device: no data moves
-    between ranks. A sharded dimension must divide evenly."""
-    where = _placements(spec, mesh, t.dim())
+def _narrow(t: torch.Tensor, where: List[Placement],
+            mesh: DeviceMesh) -> torch.Tensor:
+    """This rank's block of the whole ``t`` under ``where`` (a view). A
+    sharded dimension must divide evenly."""
     local = t
     for i, (p, at) in enumerate(zip(where, mesh.get_coordinate())):
         if isinstance(p, Shard):
@@ -154,9 +206,39 @@ def _put(t: torch.Tensor, spec: PartitionSpec, mesh: DeviceMesh) -> DTensor:
                 raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not "
                                  f"split into {parts} shards")
             local = local.narrow(p.dim, at * (size // parts), size // parts)
+    return local
+
+
+def _put(t: torch.Tensor, spec: PartitionSpec, mesh: DeviceMesh) -> DTensor:
+    """Every rank holds the same full ``t`` (built from the same seed) and
+    keeps a copy of its own shard on the mesh's device: no data moves
+    between ranks. A sharded dimension must divide evenly."""
+    where = _placements(spec, mesh, t.dim())
+    local = _narrow(t, where, mesh)
     local = local.to(mesh.device_type, copy=True).contiguous()
     return DTensor.from_local(local, mesh, where, shape=t.shape,
                               stride=contiguous_stride(t.shape))
+
+
+def local_block(x: torch.Tensor, spec: PartitionSpec,
+                mesh: DeviceMesh) -> torch.Tensor:
+    """This rank's block of the global ``x`` laid out by ``spec`` (the
+    reference's ``in_specs``): a ``DTensor`` in any layout is redistributed
+    to it, a plain tensor that holds the whole value is cut. Both are
+    differentiable."""
+    where = _placements(spec, mesh, x.dim())
+    if isinstance(x, DTensor):
+        return x.redistribute(mesh, where).to_local()
+    return _narrow(x, where, mesh)
+
+
+def from_block(local: torch.Tensor, spec: PartitionSpec, mesh: DeviceMesh,
+               shape) -> DTensor:
+    """The global tensor of ``shape`` whose block on each rank, laid out by
+    ``spec`` (the reference's ``out_specs``), is ``local``."""
+    shape = torch.Size(shape)
+    return DTensor.from_local(local, mesh, _placements(spec, mesh, len(shape)),
+                              shape=shape, stride=contiguous_stride(shape))
 
 
 def contiguous_stride(shape) -> tuple:

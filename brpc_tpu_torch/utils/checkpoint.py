@@ -6,7 +6,11 @@ The state is a nested dict, as the reference's pytree is, for example
 Each step is one directory, ``<ckpt_dir>/<step>``, written under a
 temporary name and renamed when complete, so ``latest_step`` never sees a
 partial save; the oldest steps beyond ``max_to_keep`` are deleted. A single
-process needs no process group.
+process needs no process group. In a world of several ranks every rank
+joins the save (each writes its shards of DTensors; a replicated tensor is
+written once), and one rank, the default group's rank 0, clears, renames
+and prunes the directories, between barriers, so no rank renames or
+deletes what another is still writing.
 
 Restoring into a template fills the template's tensors in place (its
 optimizer must already hold state: ``optim.init_state``), then hand the
@@ -22,6 +26,7 @@ import shutil
 import warnings
 from typing import Any
 
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 
 # One process and no process group is how this module saves and loads, so
@@ -39,19 +44,29 @@ def _steps(ckpt_dir: str) -> list[int]:
 def save_checkpoint(ckpt_dir: str, step: int, state: Any,
                     max_to_keep: int = 3, blocking: bool = True) -> None:
     """Saves ``state`` as step ``step`` and keeps the newest
-    ``max_to_keep`` steps. The save is complete when this returns, with
-    ``blocking`` either way, as the reference's is (its manager waits for
-    the save when it closes)."""
+    ``max_to_keep`` steps. The save is complete when this returns, on
+    every rank and with ``blocking`` either way, as the reference's is (its
+    manager waits for the save when it closes)."""
     final = os.path.join(os.path.abspath(ckpt_dir), str(step))
     partial = f"{final}.partial"
-    shutil.rmtree(partial, ignore_errors=True)
+    world = dist.is_initialized()
+    lead = not world or dist.get_rank() == 0
+    if lead:
+        shutil.rmtree(partial, ignore_errors=True)
+    if world:
+        dist.barrier()  # nobody writes into the partial before it is clear
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", _SINGLE_PROCESS)
         dcp.save(state, checkpoint_id=partial)
-    shutil.rmtree(final, ignore_errors=True)
-    os.rename(partial, final)
-    for old in _steps(ckpt_dir)[:-max_to_keep]:
-        shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+    if world:
+        dist.barrier()  # every rank's files are written
+    if lead:
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(partial, final)
+        for old in _steps(ckpt_dir)[:-max_to_keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, str(old)))
+    if world:
+        dist.barrier()  # the step is visible to every rank
 
 
 def latest_step(ckpt_dir: str) -> int | None:

@@ -67,7 +67,31 @@ is fatal when it fails:
    its definition, ``allreduce_benchmark`` at ``ALLREDUCE_MB`` (labelled
    with its world size: on one card its bandwidth is 0 by construction),
    the medians of ``PS_TIMED_CALLS`` calls of each entry point with the
-   peak memory, and one call of each under ``torch.profiler``.
+   peak memory, and one call of each under ``torch.profiler``;
+10. the model-parallel tier on a new NCCL world of one, with the kernels'
+   counts at 0 for the whole phase and read at its end (no kernel of the
+   repo is on these paths: each count must still be 0): (a)
+   ``dryrun_multichip(1)`` with its gates (mesh dp = tp = sp = 1); (b)
+   the sharded train step at Llama-3-8B width cut to ``TRAIN_LAYERS``
+   layers, params laid out by ``param_specs`` on
+   ``make_mesh({"tp": 1, "sp": 1})``, ring attention over 'sp' with the
+   heads over 'tp', batch (1, 2048): at f32 compute its loss and every
+   leaf's gradient against the unsharded step's on the same seeded params
+   (run first), within ``MP_GRAD_REL``; then at bf16 with AdamW
+   ``TRAIN_LR``, its first loss against phase 7's within ``MP_LOSS_TOL``,
+   ``TRAIN_STEPS`` timed steps with the median, tokens/s, FLOP share and
+   peak (finite, falling, under 80 GB), and one step under
+   ``torch.profiler`` (the ``collective`` kind is NCCL's kernels); (c)
+   ``moe_layer`` forward and backward at hidden 4096, intermediate 14336,
+   8 experts, top-1, capacity factor 2.0, ``MOE_TOKENS`` tokens, bf16
+   compute on f32 weights, ep = 1: median of ``MOE_STEPS`` and peak; the
+   dry run's MoE shape on the card against the CPU at f32; (d)
+   ``pipeline_apply`` at pp = 1 on the card against the CPU, and
+   ``ring_attention`` and ``ulysses_attention`` at sp = 1 and Llama-3-8B's
+   heads, (1, 2048), against dense attention at f32.
+
+The kernels line gives each kernel's launches by path
+(``launches_by_path``), phase 10's ("model_parallel") included.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -148,6 +172,24 @@ PS_TRAIN_STEPS, PS_TIMED_CALLS, ALLREDUCE_MB = 5, 10, 64.0
 # products and sums, the mean's gradient rounded where torch rounds it.
 PS_STEP_RTOL = 1e-6
 
+# The model-parallel tier on a world of one. The sharded step at
+# Llama-3-8B width: at f32 compute its loss and every gradient against the
+# unsharded step's, each leaf by |g_sharded - g_dense| / |g_dense| (L2),
+# within MP_GRAD_REL. The two differ only in the attention's order of
+# normalisation (ring against dense) and the loss's order of summation:
+# f32 rounding, ~1e-6 over 8 layers; a wrong factor, shard, position or
+# target gives an error of order 1. At bf16 its first loss against phase
+# 7's first loss (same params, same batch) within MP_LOSS_TOL relative,
+# the dry run's loss gate. The MoE layer at Llama-3-8B's widths (also
+# Mixtral-8x7B's published hidden 4096, intermediate 14336, 8 experts)
+# with the reference's top-1 routing and capacity factor 2.0 on one
+# sequence of 2048 tokens, and ring and Ulysses attention at Llama-3-8B's
+# heads against dense attention at f32 (the reference's ring-against-dense
+# tolerance).
+MP_GRAD_REL, MP_LOSS_TOL = 1e-4, 2e-3
+MOE_HIDDEN, MOE_INTERMEDIATE, MOE_EXPERTS, MOE_TOKENS = 4096, 14336, 8, 2048
+MOE_STEPS = 5
+MP_SMALL_TOL, MP_ATTN_TOL = 1e-5, 2e-4
 
 class SmokeFailure(RuntimeError):
     pass
@@ -453,6 +495,7 @@ def compare_dense(llama, params, cfg, tokens, flash_logits):
 
 # Kernel names by kind; the first pattern that matches names the kind.
 KERNEL_KINDS = (("flash_attention", re.compile(r"flash_fwd")),
+                ("collective", re.compile(r"nccl", re.IGNORECASE)),
                 ("matmul", re.compile(r"gemm|xmma|nvjet|cutlass|sm90_")),
                 ("optimizer", re.compile(r"[Aa]dam")),
                 ("copy_cast", re.compile(r"copy")),
@@ -648,6 +691,7 @@ def phase_train():
     check(peak < TRAIN_PEAK_LIMIT, f"train peak {peak} bytes")
     profile_run(f"train step B={b} T={t} layers={cfg.n_layers}",
                 lambda: step(params, tokens))
+    return losses[0]
 
 
 def seeded_table():
@@ -1129,6 +1173,256 @@ def channel_ops(mesh):
           f"one rank: not a link speed)")
 
 
+def phase_model_parallel(card, dense_loss):
+    """The model-parallel tier on an NCCL world of one (``dense_loss``:
+    phase 7's first loss, on the params and batch of (b)); returns the
+    kernels' launches over the whole phase (all 0: no kernel of the
+    repo is on these paths)."""
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.ops import embedding_rows as er
+    from brpc_tpu_torch.ops import flash_attention as fa
+    from brpc_tpu_torch.parallel import init_world
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mp-world-") as store:
+        init_world(store, 0, 1, "cuda")
+        try:
+            fa.launches = 0
+            for kernel in er.launches:
+                er.launches[kernel] = 0
+            mp_dryrun()
+            mp_sharded_train(card, dense_loss)
+            mp_moe()
+            mp_pipeline_and_attention()
+            launches = {"flash_attention": fa.launches, **er.launches}
+        finally:
+            dist.destroy_process_group()
+    check(not any(launches.values()),
+          f"kernel launches on the model-parallel paths: {launches}")
+    print(f"model parallel: kernel launches {launches}")
+    return launches
+
+
+def mp_dryrun():
+    from brpc_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    line = dryrun_multichip(1)
+    print(f"model parallel: dryrun_multichip(1) passed its gates in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(line.startswith("dryrun_multichip(1): mesh={'dp': 1, 'tp': 1, "
+                          "'sp': 1} loss="), f"dry run summary {line!r}")
+
+
+def mp_sharded_train(card, dense_loss):
+    """The sharded step at Llama-3-8B width, ``TRAIN_LAYERS`` layers, on
+    a (dp, tp, sp) = (1, 1, 1) mesh with ring attention. First its loss
+    and every gradient at f32 compute against the unsharded step's on the
+    same seeded params (run first; its gradients kept, its params freed);
+    then the bf16 step, its first loss against phase 7's ``dense_loss``,
+    timed and profiled."""
+    from brpc_tpu_torch import optim
+    from brpc_tpu_torch.models import llama
+    from brpc_tpu_torch.parallel import (PartitionSpec, make_mesh,
+                                         ring_attention, shard_batch,
+                                         shard_params, tensor_parallel)
+    from brpc_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                              n_layers=TRAIN_LAYERS)
+    b, t = TRAIN_BATCH
+    tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1))
+    mesh = make_mesh({"tp": 1, "sp": 1})
+    batch = shard_batch(tokens, PartitionSpec("dp", "sp"), mesh)
+
+    def ring(q, k, v):
+        return ring_attention(q, k, v, mesh=mesh, axis="sp", head_axis="tp")
+
+    def sharded(c):
+        return llama.trainable(shard_params(llama.init_params(
+            c, generator=torch.Generator(device="cuda").manual_seed(0),
+            device="cuda"), llama.param_specs(c), mesh))
+
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = llama.trainable(llama.init_params(
+        f32, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda"))
+    loss = llama.loss_fn(params, tokens, f32)
+    loss.backward()
+    want_loss, want = loss.item(), [p.grad for p in tree_leaves(params)]
+    del params, loss
+    torch.cuda.empty_cache()
+    params = sharded(f32)
+    got_loss = tensor_parallel.loss_and_grads(params, batch, f32,
+                                              ring).item()
+    errs = [(torch.linalg.vector_norm(p.grad.to_local() - w)
+             / torch.linalg.vector_norm(w)).item()
+            for p, w in zip(tree_leaves(params), want)]
+    del params, want
+    torch.cuda.empty_cache()
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    print(f"sharded train f32: Llama-3-8B width, {cfg.n_layers} of 32 "
+          f"layers, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, ring "
+          f"attention over sp with heads over tp, batch B={b} T={t}, against "
+          f"the unsharded step: loss {got_loss} against {want_loss} (rel "
+          f"{loss_rel:.3e}), gradients' relative L2 error per leaf "
+          f"{' '.join(f'{e:.3e}' for e in errs)} (bound {MP_GRAD_REL})")
+    check(loss_rel <= MP_GRAD_REL, f"sharded f32 loss {got_loss} against "
+          f"{want_loss}")
+    check(max(errs) <= MP_GRAD_REL, f"sharded gradients differ: {errs}")
+
+    torch.cuda.reset_peak_memory_stats()
+    params = sharded(cfg)
+    torch.cuda.empty_cache()
+    step = llama.make_train_step(cfg, optim.adamw(params, TRAIN_LR), ring)
+    losses, seconds = [], []
+    for _ in range(1 + TRAIN_STEPS):  # the first is the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated()
+    loss_err = abs(losses[0] - dense_loss) / abs(dense_loss)
+    print(f"sharded train bf16, AdamW lr {TRAIN_LR}: first loss "
+          f"{losses[0]} against the dense step's {dense_loss} (rel "
+          f"{loss_err:.3e}, bound {MP_LOSS_TOL})")
+    check(loss_err <= MP_LOSS_TOL,
+          f"sharded loss {losses[0]} against {dense_loss}")
+    timed = seconds[1:]
+    median = statistics.median(timed)
+    flops = train_flops(cfg, b, t)
+    flop_ms = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
+    print(f"sharded train losses (warm-up first): {losses}")
+    print(f"sharded train step x{TRAIN_STEPS} on {card}: ms median="
+          f"{median * 1e3:.3f} min={min(timed) * 1e3:.3f} "
+          f"max={max(timed) * 1e3:.3f} warmup={seconds[0] * 1e3:.3f} "
+          f"tokens_per_s median={b * t / median:.1f} peak_mem_gb="
+          f"{peak / 1e9:.3f} flop_share={flop_ms / (median * 1e3):.4f}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"sharded loss did not fall: {losses}")
+    check(peak < TRAIN_PEAK_LIMIT, f"sharded train peak {peak} bytes")
+    profile_run(f"sharded train step B={b} T={t} layers={cfg.n_layers}",
+                lambda: step(params, batch))
+    del params, step
+    torch.cuda.empty_cache()
+
+
+def mp_moe():
+    """``moe_layer`` forward and backward at the flagship's widths on
+    ep=1, bf16 compute on f32 master weights; then the dry run's MoE
+    shape on the card against the CPU at f32."""
+    from brpc_tpu_torch.models import llama, moe
+    from brpc_tpu_torch.parallel import make_mesh, shard_params
+
+    mesh = make_mesh({"ep": 1})
+    cfg = moe.MoeConfig(hidden=MOE_HIDDEN, intermediate=MOE_INTERMEDIATE,
+                        n_experts=MOE_EXPERTS, capacity_factor=2.0)
+    torch.cuda.reset_peak_memory_stats()
+    params = llama.trainable(shard_params(moe.init_moe_params(
+        cfg, generator=torch.Generator("cuda").manual_seed(0)),
+        moe.moe_param_specs(), mesh))
+    x = torch.randn((1, MOE_TOKENS, MOE_HIDDEN), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1))
+
+    def fwd_bwd():
+        out, aux = moe.moe_layer(params, x, cfg)
+        loss = torch.mean(out ** 2) + 0.01 * aux
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return loss, grads
+
+    loss, grads = fwd_bwd()  # warm-up
+    check(math.isfinite(loss.item()) and all(
+        bool(torch.isfinite(g.to_local()).all()) for g in grads),
+          "MoE loss or gradients not finite")
+    del grads
+    seconds = []
+    for _ in range(MOE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    cap = max(1, int(cfg.capacity_factor * MOE_TOKENS / MOE_EXPERTS))
+    print(f"moe: hidden {MOE_HIDDEN} intermediate {MOE_INTERMEDIATE} "
+          f"{MOE_EXPERTS} experts, top-1, capacity {cap} a expert, "
+          f"{MOE_TOKENS} tokens, bf16 compute, ep=1: forward+backward x"
+          f"{MOE_STEPS} ms median={statistics.median(seconds) * 1e3:.3f} "
+          f"min={min(seconds) * 1e3:.3f} max={max(seconds) * 1e3:.3f} "
+          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
+          f"loss={loss.item():.6f}")
+    del params, x, loss
+    torch.cuda.empty_cache()
+
+    small = moe.MoeConfig(hidden=64, intermediate=128, n_experts=4,
+                          dtype=torch.float32)
+    init = moe.init_moe_params(small, generator=torch.Generator()
+                               .manual_seed(1), device="cpu")
+    results = {}
+    for device in ("cuda", "cpu"):
+        p = {k: v.to(device, copy=True).requires_grad_(True)
+             for k, v in init.items()}
+        out, aux = moe.moe_layer(p, torch.ones((2, 16, 64), device=device),
+                                 small)
+        grads = torch.autograd.grad(torch.mean(out ** 2) + 0.01 * aux,
+                                    list(p.values()))
+        results[device] = [out, aux, *grads]
+    err = max((a.cpu() - b).abs().max().item()
+              for a, b in zip(results["cuda"], results["cpu"]))
+    print(f"moe: the dry run's shape (hidden 64, intermediate 128, 4 "
+          f"experts, f32) on the card against the CPU, output, aux and "
+          f"gradients max |err| {err:.3e} (bound {MP_SMALL_TOL})")
+    check(err <= MP_SMALL_TOL, f"MoE card against CPU: {err}")
+
+
+def mp_pipeline_and_attention():
+    """``pipeline_apply`` at pp=1 on the card against the CPU, then ring
+    and Ulysses attention at sp=1 and Llama-3-8B's heads against dense
+    attention, f32."""
+    from brpc_tpu_torch.models import llama
+    from brpc_tpu_torch.parallel import (make_mesh, pipeline_apply,
+                                         ring_attention, ulysses_attention)
+    from brpc_tpu_torch.parallel.pipeline import pipeline_apply_local
+
+    gen = torch.Generator().manual_seed(2)
+    w = torch.randn((1, 16, 16), generator=gen) * 0.3
+    x = torch.randn((16, 16), generator=gen)
+
+    def stage(p, m):
+        return torch.tanh(m @ p)
+
+    got = pipeline_apply(stage, w.cuda(), x.cuda(), mesh=make_mesh({"pp": 1}),
+                         axis="pp", microbatches=8).full_tensor().cpu()
+    want = pipeline_apply_local(stage, w[0], x, None, 0, 8)
+    err = (got - want).abs().max().item()
+    print(f"pipeline: pp=1, 8 microbatches, card against CPU max |err| "
+          f"{err:.3e} (bound {MP_SMALL_TOL})")
+    check(err <= MP_SMALL_TOL and torch.allclose(
+        want, torch.tanh(x @ w[0])), f"pipeline card against CPU: {err}")
+
+    b, t = TRAIN_BATCH
+    gen = torch.Generator("cuda").manual_seed(3)
+    q, k, v = (torch.randn((b, t, h, D), generator=gen, device="cuda")
+               for h in (HQ, HKV, HKV))
+    mesh = make_mesh({"sp": 1})
+    for causal in (True, False):
+        dense = llama.attention(q, k, v, causal=causal)
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention)):
+            got = fn(q, k, v, mesh=mesh, axis="sp", causal=causal)
+            err = (got.to_local() - dense).abs().max().item()
+            print(f"{name}_attention sp=1 causal={causal} B={b} T={t} "
+                  f"Hq={HQ} Hkv={HKV} D={D} f32: against dense max |err| "
+                  f"{err:.3e} (bound {MP_ATTN_TOL})")
+            check(err <= MP_ATTN_TOL, f"{name} against dense: {err}")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1148,9 +1442,10 @@ def main() -> int:
     phase_tiny()
     launches = phase_serve()
     phase_tiny_train()
-    phase_train()
+    dense_loss = phase_train()
     ps_launches = phase_ps_serve(table)
     collective = phase_ps_collective(table, card)
+    model_parallel = phase_model_parallel(card, dense_loss)
 
     b, t = REQUESTS[0]
     row = rows[(b, t, torch.bfloat16, True)]
@@ -1159,13 +1454,16 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "brpc_tpu_torch/csrc/flash_attention.cu",
         "replaces": "brpc_tpu/ops/flash_attention.py:71",
-        "design": "wgmma+tma, split-p", "launches": launches, **row}, {
+        "design": "wgmma+tma, split-p", "launches": launches,
+        "launches_by_path": {"serve": launches, "model_parallel":
+                             model_parallel["flash_attention"]}, **row}, {
         "name": "gather_rows", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:100",
         "design": "StableHLO device program, not Pallas; a block per id",
         "launches": ps_launches["gather_rows"] + collective["gather_rows"],
         "launches_by_path": {"ps_serve": ps_launches["gather_rows"],
-                             "ps_collective": collective["gather_rows"]},
+                             "ps_collective": collective["gather_rows"],
+                             "model_parallel": model_parallel["gather_rows"]},
         **ps_rows["gather_rows"]}, {
         "name": "scatter_sub", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:121",
@@ -1174,7 +1472,8 @@ def main() -> int:
                   "tile in shared memory",
         "launches": ps_launches["scatter_sub"] + collective["scatter_sub"],
         "launches_by_path": {"ps_serve": ps_launches["scatter_sub"],
-                             "ps_collective": collective["scatter_sub"]},
+                             "ps_collective": collective["scatter_sub"],
+                             "model_parallel": model_parallel["scatter_sub"]},
         **ps_rows["scatter_sub"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

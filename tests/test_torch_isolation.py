@@ -45,7 +45,11 @@ def test_imports_pull_in_neither_jax_nor_reference():
             "brpc_tpu_torch.ps_remote", "brpc_tpu_torch.durable",
             "brpc_tpu_torch.reshard", "brpc_tpu_torch.parallel.mesh",
             "brpc_tpu_torch.parallel.collective_channel",
-            "brpc_tpu_torch.ps", "brpc_tpu_torch.rebalance"} \
+            "brpc_tpu_torch.ps", "brpc_tpu_torch.rebalance",
+            "brpc_tpu_torch.parallel.functional",
+            "brpc_tpu_torch.parallel.tensor_parallel",
+            "brpc_tpu_torch.parallel.ring", "brpc_tpu_torch.parallel.pipeline",
+            "brpc_tpu_torch.models.moe", "brpc_tpu_torch.dryrun"} \
         <= set(names.split())
     assert bad.strip() == "[]"
 
