@@ -90,8 +90,24 @@ is fatal when it fails:
    ``ring_attention`` and ``ulysses_attention`` at sp = 1 and Llama-3-8B's
    heads, (1, 2048), against dense attention at f32.
 
+11. the device fabric's K4 and K5 programs through ``DeviceClient``
+   (``stage`` on device d, ``mlir``, ``compile``, ``execute``, ``fetch``)
+   at every power of two R up to the card count, at ``FABRIC_SIZES``,
+   inputs drawn from a seed with -0.0, subnormals, inf and NaN planted,
+   with every kernel count at 0 before and read after: ``add`` and
+   ``reduce_sum`` on device 0, ``all_reduce_sum`` and ``all_gather`` over
+   R replicas. Each result against a host numpy replay (``add``, the
+   ordered all-reduce from +0.0 and the all-gather bit for bit, NaNs as
+   NaNs; ``reduce_sum`` within one ulp of the f64 sum), every replica's
+   output the same bytes, one launch a replica an ``execute``, no buffer
+   live at ``close()``. Then each kernel against its plain version on the
+   card, timed in turns with its library call (``torch.add``,
+   ``torch.sum``, ``clone()`` at R = 1, ``torch.cuda.nccl`` at R > 1),
+   with its bound, its plain time and ``execute``'s host latency.
+
 The kernels line gives each kernel's launches by path
-(``launches_by_path``), phase 10's ("model_parallel") included.
+(``launches_by_path``), phases 10 ("model_parallel") and 11
+("device_fabric") included.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -191,6 +207,17 @@ MOE_HIDDEN, MOE_INTERMEDIATE, MOE_EXPERTS, MOE_TOKENS = 4096, 14336, 8, 2048
 MOE_STEPS = 5
 MP_SMALL_TOL, MP_ATTN_TOL = 1e-5, 2e-4
 
+# The device fabric (K4, K5) at the sizes its users move: tpu_ps's
+# allreduce of 16 floats (latency), one 2048-id request's gradient block at
+# Llama-3-8B width (2048 x 4096 f32, 33.5 MB, the kernels line's shape) and
+# one w_down gradient of Llama-3-8B (14336 x 4096 f32, 234.9 MB).
+FABRIC_SIZES = (16, 2048 * 4096, 14336 * 4096)
+FABRIC_MAIN_N, FABRIC_SEED, FABRIC_EXECUTES = 2048 * 4096, 7, 5
+FABRIC_KINDS = ("add", "reduce_sum", "all_reduce_sum", "all_gather")
+FABRIC_SPECIALS = np.array([-0.0, 1e-40, -3e-42, np.inf, -np.inf, np.nan],
+                           np.float32)
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM, to the other cards, each way
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -211,32 +238,45 @@ def kernel_error(got, want):
     return err.max().item(), (err / bound).max().item()
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> tuple[float, float]:
+def time_ms(fn, iters: int, warmup: int = 2,
+            devices=(0,)) -> tuple[float, float]:
     """Mean milliseconds per call over ``iters`` calls: (device time from
     CUDA events, host time to issue the call). A sleep kernel, about twice
     as long as the calls took in the warm-up, holds the device while the
     host issues them, so the events time the calls back to back on the
     device and not the host's pace of issuing them (a small kernel's
-    wrapper can take longer to call than the kernel to run)."""
+    wrapper can take longer to call than the kernel to run). With several
+    ``devices`` each gets its sleep and its events, and the device time is
+    the longest of theirs."""
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+
     t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    sync()
     per_call = (time.perf_counter() - t0) / warmup
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2 * per_call * iters, 5.0) * 2e9))  # cycles
-    start.record()
+    events = {}
+    for d in devices:
+        stream = torch.cuda.current_stream(d)
+        with torch.cuda.device(d):
+            torch.cuda._sleep(int(min(2 * per_call * iters, 5.0) * 2e9))
+        events[d] = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+        events[d][0].record(stream)
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
     host_s = time.perf_counter() - t0
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, 1e3 * host_s / iters
+    for d in devices:
+        events[d][1].record(torch.cuda.current_stream(d))
+    sync()
+    return max(start.elapsed_time(end) for start, end in events.values()) \
+        / iters, 1e3 * host_s / iters
 
 
-def in_turns(label, fns, iters, rounds=3):
+def in_turns(label, fns, iters, rounds=3, devices=(0,)):
     """Times each of ``fns`` (by name) with ``time_ms`` in turns: each of
     ``rounds`` rounds runs them in order and then in reverse (library,
     kernel, kernel, library), so that a drift of the card's clock or of
@@ -247,7 +287,7 @@ def in_turns(label, fns, iters, rounds=3):
     order = list(fns)
     for _ in range(rounds):
         for name in order + order[::-1]:
-            ms, host_ms = time_ms(fns[name], iters)
+            ms, host_ms = time_ms(fns[name], iters, devices=devices)
             samples[name].append(ms)
             host[name].append(host_ms)
     out = {name: (statistics.median(v), min(v), max(v))
@@ -1423,6 +1463,277 @@ def mp_pipeline_and_attention():
     torch.cuda.empty_cache()
 
 
+def fabric_draw(rng, n, specials=True):
+    """``[n]`` f32 normals with -0.0 and subnormals (and, with
+    ``specials``, +-inf and NaN) planted at seeded positions, about one
+    plant in 40 floats, at least one."""
+    x = rng.standard_normal(n, dtype=np.float32)
+    plants = FABRIC_SPECIALS if specials else FABRIC_SPECIALS[:3]
+    count = min(n, len(plants) * -(-n // 240))
+    x[rng.choice(n, count, replace=False)] = np.resize(plants, count)
+    return x
+
+
+def same_floats(got, want):
+    """Bit for bit, except that any NaN equals any NaN (the card's
+    arithmetic makes its canonical NaN; x86 keeps an operand's payload)."""
+    nan = np.isnan(want)
+    return got.shape == want.shape and np.array_equal(np.isnan(got), nan) \
+        and got[~nan].tobytes() == want[~nan].tobytes()
+
+
+def within_ulp(got, want64):
+    """``got`` (f32) within one f32 ulp of the f64 ``want64``; NaN where it
+    is NaN, the same inf where it is inf."""
+    if np.isnan(want64) or np.isinf(want64):
+        return bool(np.isnan(got)) if np.isnan(want64) else got == want64
+    want = np.float32(want64)
+    return abs(float(got) - float(want64)) <= float(np.spacing(abs(want)))
+
+
+def fabric_replicas():
+    """Every power of two up to the card count."""
+    return [r for r in (1, 2, 4, 8) if r <= torch.cuda.device_count()]
+
+
+def phase_device_fabric():
+    """Phase 11; returns (every kernel's launches on the fabric's main
+    drive, the four fabric kernels' rows of the kernels line)."""
+    from brpc_tpu_torch.ops import device_programs as dp
+    from brpc_tpu_torch.ops import embedding_rows as er
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    counts = fabric_replicas()
+    rng = np.random.default_rng(FABRIC_SEED)
+    inputs = {n: ([fabric_draw(rng, n) for _ in range(max(counts[-1], 2))],
+                  fabric_draw(rng, n, specials=False))
+              for n in FABRIC_SIZES}
+    print(f"device fabric: {torch.cuda.device_count()} cards, replicas "
+          f"{counts}, n {list(FABRIC_SIZES)}")
+    torch.cuda.empty_cache()
+    fa.launches = 0
+    for table in (er.launches, dp.launches):
+        for kernel in table:
+            table[kernel] = 0
+    t0 = time.perf_counter()
+    expected = fabric_drive(inputs, counts)
+    launches = {"flash_attention": fa.launches, **er.launches,
+                **dp.launches}
+    print(f"device fabric: main drive {time.perf_counter() - t0:.3f} s, "
+          f"kernel launches {launches}")
+    check(launches == {**{k: 0 for k in launches}, **expected},
+          f"fabric launches {launches}, want {expected}")
+    rows = {}
+    for n in FABRIC_SIZES:
+        for r in counts:
+            rows.update(fabric_kernels(inputs[n], n, r))
+    del inputs
+    torch.cuda.empty_cache()
+    # add and reduce_sum run on one replica; the collectives' row is at
+    # the most replicas of the run
+    return launches, {kind: rows[(kind, FABRIC_MAIN_N, counts[-1] if kind
+                                  in ("all_reduce_sum", "all_gather")
+                                  else 1)] for kind in FABRIC_KINDS}
+
+
+def fabric_drive(inputs, counts):
+    """The fabric's main path: each program through ``DeviceClient`` at
+    every size and replica count, each result against its host replay;
+    returns the launches it must have made."""
+    from brpc_tpu_torch.device import DeviceClient
+
+    expected = dict.fromkeys(FABRIC_KINDS, 0)
+    dev = DeviceClient()
+
+    def run(kind, n, replicas, arrays):
+        staged = [[dev.stage(a, device_index=d) for a in ops]
+                  for d, ops in enumerate(arrays)]
+        exe = dev.compile(dev.mlir(kind, n, replicas), replicas)
+        outs = exe.execute([h for ops in staged for h in ops], replicas)
+        got = [np.frombuffer(dev.fetch(h), np.float32) for (h,) in outs]
+        for h in [h for (h,) in outs] + [h for ops in staged for h in ops]:
+            dev.release(h)
+        exe.close()
+        expected[kind] += replicas
+        return got
+
+    try:
+        for n in FABRIC_SIZES:
+            fabric_check_size(run, n, *inputs[n], counts)
+        check(dev.live() == [], f"buffers live before close: {dev.live()}")
+    finally:
+        dev.close()
+    check(dev.live() == [], "buffers live after close")
+    return expected
+
+
+@np.errstate(invalid="ignore")  # inf - inf in the replays, as on the card
+def fabric_check_size(run, n, xs, finite, counts):
+    (got,) = run("add", n, 1, [(xs[0], xs[1])])
+    check(same_floats(got, xs[0] + xs[1]),
+          f"add n={n} differs from the host's a + b")
+    for x, what in ((xs[0], "planted"), (finite, "finite")):
+        (got,) = run("reduce_sum", n, 1, [(x,)])
+        want = np.sum(x, dtype=np.float64)
+        check(got.shape == (1,) and within_ulp(got[0], want),
+              f"reduce_sum n={n} {what}: {got} against the f64 sum {want}")
+    for r in counts:
+        want = np.zeros(n, np.float32)
+        for x in xs[:r]:
+            want = want + x  # in replica order from +0.0
+        got = run("all_reduce_sum", n, r, [(x,) for x in xs[:r]])
+        check(all(g.tobytes() == got[0].tobytes() for g in got),
+              f"all_reduce_sum n={n} R={r}: replicas differ")
+        check(same_floats(got[0], want),
+              f"all_reduce_sum n={n} R={r} differs from the ordered host sum")
+        if r == 1:
+            check(not np.signbit(got[0][xs[0] == 0]).any(),
+                  "all_reduce_sum R=1 kept a -0.0")
+        got = run("all_gather", n, r, [(x,) for x in xs[:r]])
+        want = np.concatenate(xs[:r])
+        check(all(g.tobytes() == want.tobytes() for g in got),
+              f"all_gather n={n} R={r} differs from the host's "
+              f"concatenation")
+    print(f"device fabric n={n}: add, reduce_sum (planted, finite), "
+          f"all_reduce_sum and all_gather at R={counts} equal their host "
+          f"replays; every replica the same bytes")
+
+
+def fabric_kernels(inputs, n, r):
+    """Each fabric kernel at size n and r replicas against its plain
+    version on the card, timed in turns with its library call; returns
+    their rows by (kind, n, r). add and reduce_sum run at r = 1 only."""
+    from brpc_tpu_torch.device import DeviceClient
+    from brpc_tpu_torch.ops import device_programs as dp
+
+    xs, finite = inputs
+    ts = [torch.from_numpy(x).to(f"cuda:{d}") for d, x in enumerate(xs[:r])]
+    devices = list(range(r))
+    rows = {}
+
+    def compare(got, want):
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        check(same_floats(got, want),
+              f"n={n} R={r}: kernel against plain version")
+        finite_at = np.isfinite(want)
+        return float(np.abs(got[finite_at].astype(np.float64)
+                            - want[finite_at]).max(initial=0.0))
+
+    def host_execute_ms(kind, arrays):
+        dev = DeviceClient()
+        try:
+            staged = [dev.stage(a, device_index=d)
+                      for d, ops in enumerate(arrays) for a in ops]
+            exe = dev.compile(dev.mlir(kind, n, len(arrays)), len(arrays))
+            samples = []
+            for _ in range(FABRIC_EXECUTES + 1):
+                t0 = time.perf_counter()
+                outs = exe.execute(staged, len(arrays))
+                samples.append(1e3 * (time.perf_counter() - t0))
+                for (h,) in outs:
+                    dev.release(h)
+            exe.close()
+            return statistics.median(samples[1:])
+        finally:
+            dev.close()
+
+    def row(kind, err, turns, plain, nbytes, link_bytes, host_ms):
+        bound_ms = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
+                             link_bytes / NVLINK_BYTES_PER_S)
+        ms, lo, hi = turns["kernel"]
+        rows[(kind, n, r)] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
+            bound_by="bytes", library_ms=turns["library"][0], replicas=r,
+            n=n, execute_host_ms=host_ms)
+        print(f"{kind} n={n} R={r}: max_abs_err={err:.3e} ms={ms:.4f} "
+              f"({lo:.4f}-{hi:.4f}) plain_ms={plain:.4f} library_ms="
+              f"{turns['library'][0]:.4f} bound_ms={bound_ms:.4f} (bytes) "
+              f"of_bound={bound_ms / ms:.4f} execute_host_ms={host_ms:.4f}")
+
+    iters = 50 if n <= FABRIC_MAIN_N else 10
+    if r == 1:
+        a, b = ts[0], torch.from_numpy(xs[1]).cuda()
+        fin = torch.from_numpy(finite).cuda()
+        err = compare(dp.add(a, b), dp.add_reference(a, b))
+        turns = in_turns(f"add n={n}", {
+            "library": lambda: torch.add(a, b),
+            "kernel": lambda: dp.add(a, b)}, iters)
+        plain, _ = time_ms(lambda: dp.add_reference(a, b), iters)
+        row("add", err, turns, plain, 3 * 4 * n, 0,
+            host_execute_ms("add", [(xs[0], xs[1])]))
+        got = dp.reduce_sum(fin)
+        check(torch.equal(got, dp.reduce_sum(fin)),
+              f"reduce_sum n={n}: two launches differ")
+        want = dp.reduce_sum_reference(fin)
+        check(within_ulp(got.item(), want.double().item()),
+              f"reduce_sum n={n}: {got.item()} against plain {want.item()}")
+        turns = in_turns(f"reduce_sum n={n}", {
+            "library": lambda: torch.sum(fin),
+            "kernel": lambda: dp.reduce_sum(fin)}, iters)
+        plain, _ = time_ms(lambda: dp.reduce_sum_reference(fin), iters)
+        row("reduce_sum", abs(got.item() - want.item()), turns, plain,
+            4 * n + 4, 0, host_execute_ms("reduce_sum", [(finite,)]))
+        del a, b, fin
+
+    # the collectives: NCCL's in place on copies of the inputs
+    copies = [t.clone() for t in ts]
+    gathered = [torch.empty(r * n, device=t.device) for t in ts]
+    if r == 1:
+        library = {"all_reduce_sum": lambda: ts[0].clone(),
+                   "all_gather": lambda: ts[0].clone()}
+    else:
+        import torch.cuda.nccl as nccl
+        library = {"all_reduce_sum": lambda: nccl.all_reduce(copies),
+                   "all_gather": lambda: nccl.all_gather(ts, gathered)}
+    links = {"all_reduce_sum": 2 * (r - 1) / r * 4 * n,
+             "all_gather": (r - 1) * 4 * n}
+    hbm = {"all_reduce_sum": 2 * 4 * n, "all_gather": (r + 1) * 4 * n}
+    for kind in ("all_reduce_sum", "all_gather"):
+        kernel = getattr(dp, kind)
+        plain_fn = getattr(dp, f"{kind}_reference")
+        got = kernel(ts)
+        for d in devices:
+            torch.cuda.synchronize(d)
+        check(all(torch.equal(g.view(torch.int32).cpu(),
+                              got[0].view(torch.int32).cpu())
+                  for g in got), f"{kind} n={n} R={r}: replicas differ")
+        want = plain_fn(ts)
+        err = max(compare(g, w) for g, w in zip(got, want))
+        del got, want
+        turns = in_turns(f"{kind} n={n} R={r}", {
+            "library": library[kind], "kernel": lambda: kernel(ts)},
+            iters, devices=devices)
+        plain, _ = time_ms(lambda: plain_fn(ts), max(iters // 10, 2),
+                           devices=devices)
+        row(kind, err, turns, plain, hbm[kind], links[kind],
+            host_execute_ms(kind, [(x,) for x in xs[:r]]))
+    del ts, copies, gathered
+    return rows
+
+
+def fabric_line(fabric_rows, fabric_launches):
+    """The fabric's four rows of the kernels line."""
+    source = "brpc_tpu_torch/csrc/device_programs.cu"
+    lines = {"add": 54, "reduce_sum": 64, "all_reduce_sum": 76,
+             "all_gather": 87}
+    designs = {
+        "add": "StableHLO device program, not Pallas; one grid-stride "
+               "pass, float4 where aligned",
+        "reduce_sum": "StableHLO device program, not Pallas; f64 per "
+                      "thread, fixed-order block trees, two passes",
+        "all_reduce_sum": "StableHLO device program, not Pallas; one-shot: "
+                          "each replica reads every input over peer "
+                          "access and sums in replica order",
+        "all_gather": "StableHLO device program, not Pallas; each replica "
+                      "copies every input over peer access"}
+    return [{
+        "name": kind, "route": "cuda", "source": source,
+        "replaces": f"cpp/device/pjrt_executable.cc:{lines[kind]}",
+        "design": designs[kind], "launches": fabric_launches[kind],
+        "launches_by_path": {"device_fabric": fabric_launches[kind]},
+        **fabric_rows[kind]} for kind in FABRIC_KINDS]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1446,6 +1757,7 @@ def main() -> int:
     ps_launches = phase_ps_serve(table)
     collective = phase_ps_collective(table, card)
     model_parallel = phase_model_parallel(card, dense_loss)
+    fabric, fabric_rows = phase_device_fabric()
 
     b, t = REQUESTS[0]
     row = rows[(b, t, torch.bfloat16, True)]
@@ -1456,14 +1768,17 @@ def main() -> int:
         "replaces": "brpc_tpu/ops/flash_attention.py:71",
         "design": "wgmma+tma, split-p", "launches": launches,
         "launches_by_path": {"serve": launches, "model_parallel":
-                             model_parallel["flash_attention"]}, **row}, {
+                             model_parallel["flash_attention"],
+                             "device_fabric": fabric["flash_attention"]},
+        **row}, {
         "name": "gather_rows", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:100",
         "design": "StableHLO device program, not Pallas; a block per id",
         "launches": ps_launches["gather_rows"] + collective["gather_rows"],
         "launches_by_path": {"ps_serve": ps_launches["gather_rows"],
                              "ps_collective": collective["gather_rows"],
-                             "model_parallel": model_parallel["gather_rows"]},
+                             "model_parallel": model_parallel["gather_rows"],
+                             "device_fabric": fabric["gather_rows"]},
         **ps_rows["gather_rows"]}, {
         "name": "scatter_sub", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:121",
@@ -1473,8 +1788,9 @@ def main() -> int:
         "launches": ps_launches["scatter_sub"] + collective["scatter_sub"],
         "launches_by_path": {"ps_serve": ps_launches["scatter_sub"],
                              "ps_collective": collective["scatter_sub"],
-                             "model_parallel": model_parallel["scatter_sub"]},
-        **ps_rows["scatter_sub"]}]}))
+                             "model_parallel": model_parallel["scatter_sub"],
+                             "device_fabric": fabric["scatter_sub"]},
+        **ps_rows["scatter_sub"]}, *fabric_line(fabric_rows, fabric)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

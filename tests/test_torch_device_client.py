@@ -156,7 +156,7 @@ def test_mlir_specs_and_compile(dev):
     assert spec == dev.mlir("gather_rows", 16, 8, 4)
     assert spec != dev.mlir("scatter_sub", 16, 8, 4)
     with pytest.raises(ValueError, match="unknown mlir builder kind"):
-        dev.mlir("all_reduce_sum", 16)
+        dev.mlir("all_to_all", 16)
     for text in ("module @gather { func.func public @main() { } }",
                  spec.replace("rows=16", "rows=-16"), spec + "extra",
                  spec.replace("gather_rows", "add_f32")):

@@ -177,7 +177,8 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    assert _build.sources() == ["embedding_rows", "flash_attention"]
+    assert _build.sources() == ["device_programs", "embedding_rows",
+                                "flash_attention"]
     with pytest.raises(_build.BuildError, match="nvcc not found"):
         _build.build()
     # the library name is keyed by the source's content and the flags
