@@ -14,14 +14,31 @@ builds besides K2 and K3 (``cpp/device/pjrt_executable.cc``, not Pallas):
 
 Replica d's input and output lie on replica d's device. On CUDA tensors
 each wrapper launches its kernel of ``csrc/device_programs.cu`` on the
-current stream of the device it writes, once for ``add`` and
-``reduce_sum`` and once a replica for the collectives, and counts each
-launch in ``launches``; replica d's kernel reads the other replicas' inputs
-over peer access (NVLink), after their devices' current streams reach the
-call; afterwards each input device's current stream waits for every
-replica's kernel, so later work there (a freed input's block handed out
-again, a write into an input) comes after the peers' reads, as with NCCL's
-stream semantics. On CPU tensors each wrapper runs the plain PyTorch version beside it; a
+current stream of its device, once for ``add`` and ``reduce_sum`` and once
+a replica for the collectives, and counts each launch in ``launches``.
+
+The collectives push: replica d's kernel stores its share into every
+replica's output over peer access (NVLink). ``all_gather``'s share is d's
+input, stored at ``[d * n, (d + 1) * n)`` of every output.
+``all_reduce_sum`` takes one of two routes by the kernels' fixed rule on
+(R, n) (``route``): the two-shot, where replica d sums slice d of every
+input (``all_reduce_slices``: R slices on 4 KB boundaries, the tail in the
+last) and stores the sums into slice d of every output; or the one-shot,
+where replica d sums all of every input into its own output. Either way
+each element is summed once, in replica order, so every replica gets the
+same bytes.
+
+A call orders itself on the calling thread: it records a ready event on
+every card's current stream, then allocates every output, then makes each
+replica's stream wait for every other card's ready event before its
+launch. So a peer reads an input, and writes an output, only after the
+work its card had queued before the call, including work on an output's
+block that the caching allocator handed out right after it was freed on
+that card's stream. After the launches each card's stream waits for every
+replica's kernel (the join): later work on a card (reading an output, a
+freed input's block handed out again, a write into an input) comes after
+every push into it and every read of it, as with NCCL's stream semantics.
+On CPU tensors each wrapper runs the plain PyTorch version beside it; a
 CUDA tensor never falls back to it.
 """
 
@@ -47,21 +64,28 @@ _peers_mu = threading.Lock()
 _VOID, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 # Each C function's argument types: the kernels take their pointers (the
-# collectives an array of the replicas' input pointers and the replica
-# count), n, the device they write and its stream.
+# all-reduce an array of every replica's input pointer and one of the
+# outputs it stores into, the all-gather its input and every output), the
+# range they move, the device they run on and its stream.
 _SIGNATURES = {
     "brt_add_f32": [_VOID, _VOID, _VOID, _LL, _INT, _VOID],
     "brt_reduce_sum_f32": [_VOID, _VOID, _VOID, _LL, _INT, _VOID],
-    "brt_all_reduce_sum_f32": [_PTRS, _INT, _VOID, _LL, _INT, _VOID],
-    "brt_all_gather_f32": [_PTRS, _INT, _VOID, _LL, _INT, _VOID],
+    "brt_all_reduce_sum_f32": [_PTRS, _INT, _PTRS, _INT, _LL, _LL, _INT,
+                               _VOID],
+    "brt_all_gather_f32": [_VOID, _PTRS, _INT, _LL, _LL, _INT, _VOID],
+    "brt_all_reduce_two_shot": [_INT, _LL],
     "brt_enable_peer_access": [_INT, _INT],
     "brt_device_programs_max_replicas": [],
     "brt_reduce_sum_scratch_doubles": [],
 }
 
+# The two-shot all-reduce's slices start on multiples of this many floats
+# (4 KB), so each slice of an aligned vector is 16-byte aligned.
+SLICE_FLOATS = 1024
+
 
 class PeerAccessError(RuntimeError):
-    """A device cannot read another's memory: no one-shot collective."""
+    """A device cannot reach another's memory: no collective over it."""
 
 
 def _check_vector(x: torch.Tensor, what: str) -> None:
@@ -125,7 +149,7 @@ def all_reduce_sum(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     _check_replicas(xs, "all_reduce_sum")
     if not xs[0].is_cuda:
         return all_reduce_sum_reference(xs)
-    return _collective("all_reduce_sum", xs, xs[0].numel())
+    return _collective("all_reduce_sum", xs)
 
 
 def all_gather(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
@@ -134,7 +158,28 @@ def all_gather(xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     _check_replicas(xs, "all_gather")
     if not xs[0].is_cuda:
         return all_gather_reference(xs)
-    return _collective("all_gather", xs, len(xs) * xs[0].numel())
+    return _collective("all_gather", xs)
+
+
+def all_reduce_slices(n: int, replicas: int) -> List[tuple]:
+    """The two-shot all-reduce's slices of ``[0, n)``, one ``(begin, end)``
+    a replica: equal runs of whole 4 KB tiles, the rest in the last one
+    (every slice but the last is empty when n < replicas * 1024)."""
+    per = n // replicas // SLICE_FLOATS * SLICE_FLOATS
+    return [(d * per, n if d == replicas - 1 else (d + 1) * per)
+            for d in range(replicas)]
+
+
+def route(kind: str, replicas: int, n: int) -> str:
+    """The route a collective of ``replicas`` inputs of n floats takes on
+    the card: ``all_reduce_sum`` "two-shot" or "one-shot" by the kernels'
+    rule, ``all_gather`` "push"."""
+    if kind == "all_gather":
+        return "push"
+    if kind != "all_reduce_sum":
+        raise ValueError(f"no route for {kind!r}")
+    two_shot = _library().brt_all_reduce_two_shot(replicas, n)
+    return "two-shot" if two_shot else "one-shot"
 
 
 def max_replicas() -> int:
@@ -164,30 +209,47 @@ def enable_peer_access(devices: Sequence[int]) -> None:
 
 
 def _collective(kind: str, xs: Sequence[torch.Tensor],
-                out_numel: int) -> List[torch.Tensor]:
+                two_shot: bool | None = None) -> List[torch.Tensor]:
+    """One launch a replica, ordered as the module docstring says.
+    ``two_shot`` None takes the kernels' rule; a bool forces an
+    all-reduce route (for timing the route the rule does not take)."""
     devices = [x.device.index for x in xs]
     enable_peer_access(sorted(set(devices)))
-    # Replica d reads every input: its stream waits for each other
-    # device's current stream to reach this call.
+    replicas, n = len(xs), xs[0].numel()
     ready = {}
     for dev in set(devices):
         ready[dev] = torch.cuda.Event()
         ready[dev].record(torch.cuda.current_stream(dev))
-    ptrs = (ctypes.c_void_p * len(xs))(*[x.data_ptr() for x in xs])
-    outs = []
-    for x in xs:
+    out_numel = n if kind == "all_reduce_sum" else replicas * n
+    outs = [torch.empty(out_numel, dtype=torch.float32, device=x.device)
+            for x in xs]
+    out_ptrs = (ctypes.c_void_p * replicas)(*[o.data_ptr() for o in outs])
+    if kind == "all_reduce_sum":
+        if two_shot is None:
+            two_shot = route(kind, replicas, n) == "two-shot"
+        in_ptrs = (ctypes.c_void_p * replicas)(*[x.data_ptr() for x in xs])
+        spans = all_reduce_slices(n, replicas) if two_shot \
+            else [(0, n)] * replicas
+    for d, x in enumerate(xs):
         dev = x.device.index
         stream = torch.cuda.current_stream(dev)
         for other, event in ready.items():
             if other != dev:
                 stream.wait_event(event)
-        out = torch.empty(out_numel, dtype=torch.float32, device=x.device)
-        if x.numel():
-            _launch(kind, x.device, ptrs, len(xs), out.data_ptr(),
-                    x.numel())
-        outs.append(out)
-    # The join: each input's device waits for every replica's kernel, so no
-    # later work on it can overtake a peer still reading its input.
+        if kind == "all_gather":
+            if n:
+                _launch(kind, x.device, x.data_ptr(), out_ptrs, replicas,
+                        d * n, n)
+            continue
+        begin, end = spans[d]
+        if end > begin:
+            targets = out_ptrs if two_shot else \
+                (ctypes.c_void_p * 1)(outs[d].data_ptr())
+            _launch(kind, x.device, in_ptrs, replicas, targets,
+                    len(targets), begin, end)
+    # The join: each card's stream waits for every replica's kernel, so no
+    # later work on it overtakes a push into its outputs or a peer still
+    # reading its input.
     done = {}
     for dev in set(devices):
         done[dev] = torch.cuda.Event()

@@ -100,7 +100,9 @@ is fatal when it fails:
    ordered all-reduce from +0.0 and the all-gather bit for bit, NaNs as
    NaNs; ``reduce_sum`` within one ulp of the f64 sum), every replica's
    output the same bytes, one launch a replica an ``execute``, no buffer
-   live at ``close()``. Then each kernel against its plain version on the
+   live at ``close()``; a line before names the route each collective
+   takes at each (R, n) (the all-reduce's one-shot or two-shot, the
+   all-gather's push). Then each kernel against its plain version on the
    card, timed in turns with its library call (``torch.add``,
    ``torch.sum``, ``clone()`` at R = 1, ``torch.cuda.nccl`` at R > 1),
    with its bound, its plain time and ``execute``'s host latency.
@@ -1510,6 +1512,10 @@ def phase_device_fabric():
               for n in FABRIC_SIZES}
     print(f"device fabric: {torch.cuda.device_count()} cards, replicas "
           f"{counts}, n {list(FABRIC_SIZES)}")
+    print("device fabric routes: " + ", ".join(
+        f"{kind} R={r} n={n} {dp.route(kind, r, n)}"
+        for kind in ("all_reduce_sum", "all_gather") for r in counts
+        for n in FABRIC_SIZES))
     torch.cuda.empty_cache()
     fa.launches = 0
     for table in (er.launches, dp.launches):
@@ -1645,6 +1651,8 @@ def fabric_kernels(inputs, n, r):
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound_ms,
             bound_by="bytes", library_ms=turns["library"][0], replicas=r,
             n=n, execute_host_ms=host_ms)
+        if kind in ("all_reduce_sum", "all_gather"):
+            rows[(kind, n, r)]["fabric_route"] = dp.route(kind, r, n)
         print(f"{kind} n={n} R={r}: max_abs_err={err:.3e} ms={ms:.4f} "
               f"({lo:.4f}-{hi:.4f}) plain_ms={plain:.4f} library_ms="
               f"{turns['library'][0]:.4f} bound_ms={bound_ms:.4f} (bytes) "
@@ -1721,11 +1729,18 @@ def fabric_line(fabric_rows, fabric_launches):
                "pass, float4 where aligned",
         "reduce_sum": "StableHLO device program, not Pallas; f64 per "
                       "thread, fixed-order block trees, two passes",
-        "all_reduce_sum": "StableHLO device program, not Pallas; one-shot: "
-                          "each replica reads every input over peer "
-                          "access and sums in replica order",
-        "all_gather": "StableHLO device program, not Pallas; each replica "
-                      "copies every input over peer access"}
+        "all_reduce_sum": "StableHLO device program, not Pallas; push, "
+                          "one kernel a replica: two-shot (replica d sums "
+                          "slice d of every input in replica order and "
+                          "stores it into every replica's output over "
+                          "NVLink) or, by a fixed rule on (R, n), one-shot "
+                          "(replica d sums every input into its own "
+                          "output); one contiguous tile a block, .cs "
+                          "loads and stores",
+        "all_gather": "StableHLO device program, not Pallas; push, one "
+                      "kernel a replica: replica d stores its input into "
+                      "every replica's output over NVLink; one "
+                      "contiguous tile a block, .cs loads and stores"}
     return [{
         "name": kind, "route": "cuda", "source": source,
         "replaces": f"cpp/device/pjrt_executable.cc:{lines[kind]}",

@@ -18,9 +18,16 @@ with -0.0, subnormals, +-inf and NaN planted.
   within one f32 ulp; inf and NaN where the reference has them.
 - The reference's refusals, code for code, and the port's own.
 
+The two-shot all-reduce's slice rule (``all_reduce_slices``) is held here
+too: the slices tile the vector on 16-byte boundaries, and their ordered
+sums side by side are the reference's all-reduce.
+
 Tests marked ``cuda`` hold each kernel to its plain version on the card,
-and with two cards or more the collectives over peers; they skip without
-a card. Every test ends with no net growth of the port's handle ledger.
+and with two cards or more the collectives over peers: both all-reduce
+routes at sizes on both sides of the rule, misaligned inputs, 50 calls
+back to back, and the ordering of the peers' pushes after the receiving
+card's pending work; they skip without a card. Every test ends with no
+net growth of the port's handle ledger.
 """
 
 import subprocess
@@ -169,6 +176,36 @@ def test_collectives_match_reference(ref, port, kind, replicas, n):
         assert _floats(got[d]).shape == (out_n,)
         assert _same_floats(got[d], want[d])
         assert got[d] == got[0]  # every replica holds the same bytes
+
+
+SLICE_SIZES = [0, 1, 3, 4, 15, 16, 4099, (1 << 20) + 3]
+
+
+@pytest.mark.parametrize("n", SLICE_SIZES)
+@pytest.mark.parametrize("replicas", range(1, 9))
+def test_all_reduce_slices_tile_the_vector(ref, replicas, n):
+    """The two-shot's slices (the wrapper's rule, passed to each replica's
+    kernel): in replica order they tile ``[0, n)`` exactly, each starts on
+    a 16-byte boundary, and at R = 1, 2 and 4 the ordered sums of each
+    slice, laid side by side, are the reference's all-reduce bytes."""
+    spans = dp.all_reduce_slices(n, replicas)
+    assert len(spans) == replicas
+    assert spans[0][0] == 0 and spans[-1][1] == n
+    for (begin, end), (nxt, _) in zip(spans, spans[1:] + [(n, n)]):
+        assert begin <= end == nxt
+        assert begin % 4 == 0  # 16 bytes of f32
+    if replicas not in REPLICAS:
+        return
+    xs = [_draw(n, 80 + d) for d in range(replicas)]
+    got = np.zeros(n, np.float32)
+    with np.errstate(invalid="ignore"):  # inf + -inf, as the plugin adds
+        for begin, end in spans:
+            acc = np.zeros(end - begin, np.float32)
+            for x in xs:
+                acc = acc + x[begin:end]
+            got[begin:end] = acc
+    want = _run(ref, "all_reduce_sum", [(x,) for x in xs], n, replicas)
+    assert all(_same_floats(got.tobytes(), w) for w in want)
 
 
 def test_all_reduce_of_one_replica_maps_negative_zero_to_zero(ref, port):
@@ -413,25 +450,155 @@ def test_kernels_equal_plain_on_card(cuda_device, n, offset):
     assert _bits(dp.reduce_sum(fin)) == _bits(got_sum)  # deterministic
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("replicas", [2, 4])
-@pytest.mark.parametrize("n", [16, 4099, 1 << 20])
-def test_collectives_over_peers_on_cards(cuda_device, replicas, n):
+def _need_cards(replicas):
     if torch.cuda.device_count() < replicas:
         pytest.skip(f"needs {replicas} CUDA devices")
-    xs = [torch.from_numpy(_draw(n, 50 + d)).to(f"cuda:{d}")
-          for d in range(replicas)]
-    ar = dp.all_reduce_sum(xs)
-    ag = dp.all_gather(xs)
+
+
+def _on_cards(arrays, offset=0):
+    """``arrays[d]`` on card d; ``offset`` 1 gives views that start one
+    float into their buffer (not 16-byte aligned)."""
+    return [torch.from_numpy(np.concatenate([np.zeros(offset, np.float32),
+                                             x])).to(f"cuda:{d}")[offset:]
+            for d, x in enumerate(arrays)]
+
+
+def _sync(replicas):
     for d in range(replicas):
         torch.cuda.synchronize(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replicas", [2, 4])
+@pytest.mark.parametrize("n", [7, 16, 4099, 65536 + 5, 1 << 20,
+                               (1 << 22) + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_collectives_over_peers_on_cards(cuda_device, replicas, n, offset):
+    """Both all-reduce routes at every n (the rule's own and the other,
+    forced), n < 4R among them, and the all-gather, on aligned inputs and
+    on inputs one float off 16 bytes: every replica the same bytes, equal
+    to the plain versions."""
+    _need_cards(replicas)
+    xs = _on_cards([_draw(n, 50 + d) for d in range(replicas)], offset)
+    assert all(x.data_ptr() % 16 == 4 * offset for x in xs)
+    rule = dp.route("all_reduce_sum", replicas, n) == "two-shot"
+    before = dp.launches["all_reduce_sum"]
+    ars = [dp._collective("all_reduce_sum", xs, two_shot)
+           for two_shot in (rule, not rule)]
+    ag = dp.all_gather(xs)
+    _sync(replicas)
+    # the one-shot launches on every replica, the two-shot on each
+    # replica with a slice (all of them once n >= 1024 R)
+    spans = dp.all_reduce_slices(n, replicas)
+    assert dp.launches["all_reduce_sum"] - before == replicas + sum(
+        end > begin for begin, end in spans)
     want_ar = dp.all_reduce_sum_reference(xs)
     want_ag = dp.all_gather_reference(xs)
+    for ar in ars:
+        for d in range(replicas):
+            assert ar[d].device == xs[d].device == ag[d].device
+            assert _bits(ar[d]) == _bits(ars[0][0])
+            assert _same_floats(_bits(ar[d]), _bits(want_ar[d]))
     for d in range(replicas):
-        assert ar[d].device == xs[d].device == ag[d].device
-        assert _bits(ar[d]) == _bits(ar[0]) and _bits(ag[d]) == _bits(ag[0])
-        assert _same_floats(_bits(ar[d]), _bits(want_ar[d]))
         assert _bits(ag[d]) == _bits(want_ag[d])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replicas", [2, 4])
+@pytest.mark.parametrize("n", [7, 4099, (1 << 20) + 3])
+def test_collectives_of_replicas_on_one_card(cuda_device, replicas, n):
+    """The push kernels with every replica on one card: both all-reduce
+    routes (slices, stores into the other replicas' outputs) and the
+    all-gather, bit-equal to the plain versions, on any card count."""
+    xs = [torch.from_numpy(_draw(n, 110 + d)).to(cuda_device)
+          for d in range(replicas)]
+    ars = [dp._collective("all_reduce_sum", xs, two_shot)
+           for two_shot in (False, True)]
+    ag = dp.all_gather(xs)
+    torch.cuda.synchronize()
+    want_ar = dp.all_reduce_sum_reference(xs)
+    for ar in ars:
+        assert all(_same_floats(_bits(a), _bits(w))
+                   for a, w in zip(ar, want_ar))
+    want_ag = _bits(dp.all_gather_reference(xs)[0])
+    assert all(_bits(g) == want_ag for g in ag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replicas", [2, 4])
+def test_back_to_back_calls_read_on_their_cards(cuda_device, replicas):
+    """50 calls in a row, each one's outputs copied at once on their own
+    cards' current streams, with no wait: the join orders every push
+    before the copies, so every copy holds the full result."""
+    _need_cards(replicas)
+    sizes = [4099, 1 << 20, (1 << 22) + 3]
+    inputs = {n: [_draw(n, 90 + d) for d in range(replicas)] for n in sizes}
+    want = {}
+    with np.errstate(invalid="ignore"):
+        for n, arrays in inputs.items():
+            acc = np.zeros(n, np.float32)
+            for x in arrays:
+                acc = acc + x
+            want[n] = (acc.tobytes(), np.concatenate(arrays).tobytes())
+    xs = {n: _on_cards(arrays) for n, arrays in inputs.items()}
+    _sync(replicas)
+    copies = []
+    for call in range(50):
+        n = sizes[call % len(sizes)]
+        kind = ("all_reduce_sum", "all_gather")[call // len(sizes) % 2]
+        outs = getattr(dp, kind)(xs[n])
+        copies.append((n, kind, [o.clone() for o in outs]))
+    _sync(replicas)
+    for n, kind, outs in copies:
+        ar, ag = want[n]
+        for o in outs:
+            if kind == "all_reduce_sum":
+                assert _same_floats(_bits(o), ar), (n, kind)
+            else:
+                assert _bits(o) == ag, (n, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replicas", [2, 4])
+@pytest.mark.parametrize("kind", ["all_reduce_sum", "all_gather"])
+def test_pushed_writes_follow_the_receivers_stream(cuda_device, replicas,
+                                                   kind):
+    """On card r (the last), a sleep then a ``fill_`` of a buffer the size
+    of r's output are queued, and the buffer is freed, so the caching
+    allocator hands its block out as r's output while the fill is still
+    pending. The peers' pushes into it must wait for the fill (the ready
+    events), or the fill overwrites them. The all-reduce takes the
+    two-shot, whose peers push, whatever the rule says at this R."""
+    _need_cards(replicas)
+    n = 1 << 22
+    arrays = [_draw(n, 100 + d) for d in range(replicas)]
+    with np.errstate(invalid="ignore"):
+        acc = np.zeros(n, np.float32)
+        for x in arrays:
+            acc = acc + x
+    want = acc.tobytes() if kind == "all_reduce_sum" else \
+        np.concatenate(arrays).tobytes()
+    xs = _on_cards(arrays)
+    two_shot = True if kind == "all_reduce_sum" else None
+    # Loads the kernels on every card before the fill is armed, so that
+    # the call under test does no first-launch work.
+    dp._collective(kind, xs, two_shot)
+    _sync(replicas)
+    r = replicas - 1
+    out_numel = n if kind == "all_reduce_sum" else replicas * n
+    torch.cuda.empty_cache()  # no other cached block of that size
+    with torch.cuda.device(r):
+        buf = torch.empty(out_numel, device=f"cuda:{r}")
+        torch.cuda._sleep(int(2e8))  # ~0.1 s at the H100's clock
+        buf.fill_(float("nan"))
+        freed = buf.data_ptr()
+        del buf
+    outs = dp._collective(kind, xs, two_shot)
+    assert outs[r].data_ptr() == freed  # the block the fill still owns
+    _sync(replicas)
+    for o in outs:
+        assert _same_floats(_bits(o), want) if kind == "all_reduce_sum" \
+            else _bits(o) == want
 
 
 @pytest.mark.cuda

@@ -2,7 +2,8 @@
 
 A fresh interpreter imports every module of ``brpc_tpu_torch`` and
 ``chip_smoke`` and then finds neither package in ``sys.modules``; an AST
-scan finds no import of either in the sources.
+scan finds no import of either in the sources, the port's measurement
+scripts (``fabric_routes.py``, ``tp_scaling.py``) included.
 """
 
 import ast
@@ -13,8 +14,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-_SOURCES = sorted((ROOT / "brpc_tpu_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+_SOURCES = sorted((ROOT / "brpc_tpu_torch").rglob("*.py")) + [
+    ROOT / name for name in ("chip_smoke.py", "fabric_routes.py",
+                             "tp_scaling.py")]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
