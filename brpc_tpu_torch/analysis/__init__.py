@@ -14,13 +14,17 @@ native handles):
   brpc_tpu_torch.analysis``): an AST linter with framework-specific checks —
   ``ctypes-contract``, ``fiber-shared-state`` (handler-reachable
   mutation across modules), ``obs-guard``, ``trace-purity`` (transitive,
-  with call chains + host-callback hazards), and ``lock-order`` (static
+  with call chains, from functions handed to ``torch.compile``,
+  ``torch.jit`` or a CUDA graph capture), and ``lock-order`` (static
   inversion cycles over the ``with checked_lock`` nesting graph; locks
   resolve through module/class/parameter bindings and module-level
   literal dict containers — ``LOCKS["a"]`` binds by key).
   Findings carry stable ids; ``--baseline`` diffs against an accepted
-  set.  ``tests/test_lint_clean.py`` keeps the tree at zero new
-  findings.
+  set.  ``tests/test_torch_lint.py`` keeps the tree at zero findings
+  against ``tests/torch_lint_baseline.json``.  The tool tier also has
+  the wire fuzzer (:mod:`brpc_tpu_torch.analysis.fuzz`) and the
+  cross-language contract checks over ``cpp/capi``
+  (:mod:`brpc_tpu_torch.analysis.native`).
 - **dynamic** (:mod:`brpc_tpu_torch.analysis.race`): the :func:`checked_lock`
   factory every fabric lock is created through.  Plain
   ``threading.Lock`` in steady state; under ``BRPC_TPU_RACECHECK=1`` a

@@ -63,21 +63,6 @@ _peers_mu = threading.Lock()
 
 _VOID, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
-# Each C function's argument types: the kernels take their pointers (the
-# all-reduce an array of every replica's input pointer and one of the
-# outputs it stores into, the all-gather its input and every output), the
-# range they move, the device they run on and its stream.
-_SIGNATURES = {
-    "brt_add_f32": [_VOID, _VOID, _VOID, _LL, _INT, _VOID],
-    "brt_reduce_sum_f32": [_VOID, _VOID, _VOID, _LL, _INT, _VOID],
-    "brt_all_reduce_sum_f32": [_PTRS, _INT, _PTRS, _INT, _LL, _LL, _INT,
-                               _VOID],
-    "brt_all_gather_f32": [_VOID, _PTRS, _INT, _LL, _LL, _INT, _VOID],
-    "brt_all_reduce_two_shot": [_INT, _LL],
-    "brt_enable_peer_access": [_INT, _INT],
-    "brt_device_programs_max_replicas": [],
-    "brt_reduce_sum_scratch_doubles": [],
-}
 
 # The two-shot all-reduce's slices start on multiples of this many floats
 # (4 KB), so each slice of an aligned vector is 16-byte aligned.
@@ -275,11 +260,31 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("device_programs")
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
+    if lib.brt_reduce_sum_scratch_doubles.argtypes is not None:
+        return lib  # declared below, last: every symbol is declared
+    # The kernels take their pointers (the all-reduce an array of every
+    # replica's input pointer and one of the outputs it stores into, the
+    # all-gather its input and every output), the range they move, the
+    # device they run on and its stream.
+    lib.brt_add_f32.argtypes = [_VOID, _VOID, _VOID, _LL, _INT, _VOID]
+    lib.brt_add_f32.restype = ctypes.c_int
+    lib.brt_reduce_sum_f32.argtypes = [_VOID, _VOID, _VOID, _LL, _INT,
+                                       _VOID]
+    lib.brt_reduce_sum_f32.restype = ctypes.c_int
+    lib.brt_all_reduce_sum_f32.argtypes = [_PTRS, _INT, _PTRS, _INT, _LL,
+                                           _LL, _INT, _VOID]
+    lib.brt_all_reduce_sum_f32.restype = ctypes.c_int
+    lib.brt_all_gather_f32.argtypes = [_VOID, _PTRS, _INT, _LL, _LL, _INT,
+                                       _VOID]
+    lib.brt_all_gather_f32.restype = ctypes.c_int
+    lib.brt_all_reduce_two_shot.argtypes = [_INT, _LL]
+    lib.brt_all_reduce_two_shot.restype = ctypes.c_int
+    lib.brt_enable_peer_access.argtypes = [_INT, _INT]
+    lib.brt_enable_peer_access.restype = ctypes.c_int
+    lib.brt_device_programs_max_replicas.argtypes = []
+    lib.brt_device_programs_max_replicas.restype = ctypes.c_int
+    lib.brt_reduce_sum_scratch_doubles.argtypes = []
+    lib.brt_reduce_sum_scratch_doubles.restype = ctypes.c_int
     return lib
 
 

@@ -42,8 +42,8 @@ _launches_mu = threading.Lock()
 
 # Each kernel's C function and its number of pointer arguments; three ints
 # (k, rows, dim) and the stream follow them.
-_SYMBOLS = {"gather_rows": ("brt_gather_rows_f32", 3),
-            "scatter_sub": ("brt_scatter_sub_f32", 5)}
+_SYMBOLS = {"gather_rows": "brt_gather_rows_f32",
+            "scatter_sub": "brt_scatter_sub_f32"}
 
 
 def _check_table_ids(table: torch.Tensor, ids: torch.Tensor) -> None:
@@ -105,7 +105,7 @@ def scatter_sub(table: torch.Tensor, ids: torch.Tensor,
 
 
 def _launch(kernel: str, table: torch.Tensor, *args) -> None:
-    fn = getattr(_library(), _SYMBOLS[kernel][0])
+    fn = getattr(_library(), _SYMBOLS[kernel])
     with torch.cuda.device(table.device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
@@ -117,12 +117,15 @@ def _launch(kernel: str, table: torch.Tensor, *args) -> None:
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("embedding_rows")
-    for name, pointers in _SYMBOLS.values():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * pointers \
-                + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    if lib.brt_scatter_sub_f32.argtypes is not None:
+        return lib  # declared below, last: both symbols are declared
+    # the kernel's pointers, then (k, rows, dim), then the stream
+    lib.brt_gather_rows_f32.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.brt_gather_rows_f32.restype = ctypes.c_int
+    lib.brt_scatter_sub_f32.argtypes = [ctypes.c_void_p] * 5 \
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.brt_scatter_sub_f32.restype = ctypes.c_int
     return lib
 
 

@@ -117,12 +117,15 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    for name in _SYMBOLS.values():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+    if lib.brt_flash_attention_bf16.argtypes is not None:
+        return lib  # declared below, last: both symbols are declared
+    # q, k, v, out; (b, t, hq, hkv, d, causal); the stream
+    lib.brt_flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.brt_flash_attention_f32.restype = ctypes.c_int
+    lib.brt_flash_attention_bf16.argtypes = [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.brt_flash_attention_bf16.restype = ctypes.c_int
     return lib
 
 

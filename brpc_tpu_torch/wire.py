@@ -10,12 +10,12 @@ hand-rolled ``_pack_*``/``_unpack_*`` sites in ``ps_remote.py`` /
 ``reshard.py`` stay (they are the measured hot path), but they are no
 longer the only statement of the format:
 
-- the ``wire-contract`` lint check (:mod:`brpc_tpu.analysis.lint`)
+- the ``wire-contract`` lint check (:mod:`brpc_tpu_torch.analysis.lint`)
   cross-checks every registered site's struct format strings against
   the schema it claims to implement, flags pack/unpack drift, and flags
   count/length reads on parse paths that never reach a bounds check;
-- the structure-aware fuzzer (:mod:`brpc_tpu.analysis.fuzz`) derives
-  its mutation points (field boundaries, length fields, string fields)
+- the structure-aware fuzzer (:mod:`brpc_tpu_torch.analysis.fuzz`)
+  derives its mutation points (field boundaries, length fields, string fields)
   from the same schemas, so every declared framing is fuzzed;
 - :func:`FrameSchema.pack`/:func:`FrameSchema.unpack` are the reference
   implementations the hand-rolled sites are tested against

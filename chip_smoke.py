@@ -106,10 +106,24 @@ is fatal when it fails:
    card, timed in turns with its library call (``torch.add``,
    ``torch.sum``, ``clone()`` at R = 1, ``torch.cuda.nccl`` at R > 1),
    with its bound, its plain time and ``execute``'s host latency.
+12. the press harness (``brpc_tpu_torch.press``, the ``rpc_press``
+   analog) driving open-loop traffic into ``DevicePsShardServer`` at
+   Llama-3-8B's table on card 0, as the reference's scenario matrix does
+   (``bench_scenarios.py``): the shard's capacity calibrated by that
+   matrix's rule (``PRESS_CALIBRATE_THREADS`` threads in a closed loop of
+   Lookups of ``PRESS_BATCH`` sorted ids for ``PRESS_CALIBRATE_S``), then
+   its ``steady`` and ``zipf_hot`` scenarios at their fractions of it, no
+   limiter and no deadline. With every kernel count at 0 before the
+   scenarios and read after: every op must succeed, K2 must launch once a
+   Lookup and K3 once an ApplyGrad (plus the shard's counted wasted
+   launches), the shard must serve from the card throughout, the final
+   table must equal a host replay bit for bit, and no device buffer may be
+   live after close. It prints the capacity, offered and goodput qps,
+   availability, sojourn and service p50/p99 and the peak memory.
 
 The kernels line gives each kernel's launches by path
-(``launches_by_path``), phases 10 ("model_parallel") and 11
-("device_fabric") included.
+(``launches_by_path``), phases 10 ("model_parallel"), 11
+("device_fabric") and 12 ("press") included.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -219,6 +233,18 @@ FABRIC_KINDS = ("add", "reduce_sum", "all_reduce_sum", "all_gather")
 FABRIC_SPECIALS = np.array([-0.0, 1e-40, -3e-42, np.inf, -np.inf, np.nan],
                            np.float32)
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM, to the other cards, each way
+
+# The press harness against the device shard: the reference's scenario
+# matrix (bench_scenarios.py) at its own geometry of a request (256 ids,
+# nine reads in ten, 2.5 s of seeded traffic, seed 11) and its two
+# scenarios under capacity, steady (0.40 of it, uniform ids) and zipf_hot
+# (0.45, zipf s = 1.2), on Llama-3-8B's table. Cut: the matrix's third
+# scenario (bursts past capacity) and its limiter and deadline configs,
+# which measure overload control and shed ops on purpose.
+PRESS_BATCH, PRESS_READ_FRACTION = 256, 0.9
+PRESS_SECONDS, PRESS_SEED = 2.5, 11
+PRESS_CALIBRATE_THREADS, PRESS_CALIBRATE_S = 4, 0.6
+PRESS_SCENARIOS = (("steady", 0.40, 0.0), ("zipf_hot", 0.45, 1.2))
 
 class SmokeFailure(RuntimeError):
     pass
@@ -1719,7 +1745,139 @@ def fabric_kernels(inputs, n, r):
     return rows
 
 
-def fabric_line(fabric_rows, fabric_launches):
+def phase_press(table):
+    """Phase 12; returns every kernel's launches over the two scenarios."""
+    from brpc_tpu_torch import obs, press
+    from brpc_tpu_torch.device import DeviceClient
+    from brpc_tpu_torch.ops import device_programs as dp
+    from brpc_tpu_torch.ops import embedding_rows as er
+    from brpc_tpu_torch.ops import flash_attention as fa
+    from brpc_tpu_torch.ps_remote import DevicePsShardServer
+
+    check(obs.enabled(), "obs is off: wasted launches would go uncounted")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    phase_t0 = time.perf_counter()
+    replay = table.copy()
+    dev = DeviceClient()
+    t0 = time.perf_counter()
+    server = DevicePsShardServer(PS_VOCAB, PS_DIM, 0, 1, lr=PS_LR,
+                                 seed=PS_SEED, device_client=dev)
+    print(f"press: DevicePsShardServer {PS_VOCAB}x{PS_DIM} f32 on card 0, "
+          f"up in {time.perf_counter() - t0:.3f} s")
+    left_the_card = threading.Event()
+    done = threading.Event()
+
+    def watch():
+        while not done.wait(0.005):
+            if not server._dev_serving:
+                left_the_card.set()
+
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    try:
+        check(server._dev_serving and server.table.tobytes()
+              == replay.tobytes(), "the shard's seeded table differs")
+        capacity = press_capacity(server.address)
+        print(f"press capacity: {PRESS_CALIBRATE_THREADS} threads, closed "
+              f"loop, {PRESS_CALIBRATE_S} s of Lookups of {PRESS_BATCH} "
+              f"sorted ids: {capacity:.1f} qps")
+        # Every apply subtracts the same f32 value, PS_LR * GRAD_VALUE,
+        # from each of its rows, so the replay is exact whatever order the
+        # server applied the ops in.
+        grads = np.full((PRESS_BATCH, PS_DIM), press.GRAD_VALUE, np.float32)
+        fa.launches = 0
+        for counts in (er.launches, dp.launches):
+            for kernel in counts:
+                counts[kernel] = 0
+        for name, share, zipf_s in PRESS_SCENARIOS:
+            sc = press.Scenario(
+                name=name, duration_s=PRESS_SECONDS, qps=share * capacity,
+                batch=PRESS_BATCH, read_fraction=PRESS_READ_FRACTION,
+                zipf_s=zipf_s, seed=PRESS_SEED)
+            ops = press.build_ops(sc, PS_VOCAB)
+            applies = [op for op in ops if op.op == press.OP_APPLY]
+            before = dict(er.launches)
+            wasted0 = obs.counter("ps_device_wasted_launches").get_value()
+            rep = press.run_press(server.address, ops, PS_DIM)
+            wasted = obs.counter(
+                "ps_device_wasted_launches").get_value() - wasted0
+            gathers = er.launches["gather_rows"] - before["gather_rows"]
+            scatters = er.launches["scatter_sub"] - before["scatter_sub"]
+            check(rep["n"] == rep["ok"] == len(ops) and not rep["errors"],
+                  f"press {name}: {rep['ok']} of {rep['n']} ops succeeded "
+                  f"({len(ops)} sent), errors {rep['errors']}")
+            check(gathers == len(ops) - len(applies)
+                  and scatters == len(applies) + wasted,
+                  f"press {name}: {gathers} gathers for "
+                  f"{len(ops) - len(applies)} Lookups, {scatters} scatters "
+                  f"for {len(applies)} ApplyGrads and {wasted} wasted")
+            for op in applies:
+                np.subtract.at(replay, op.ids, PS_LR * grads)
+            print(f"press {name}: target_qps={sc.qps:.1f} ops={len(ops)} "
+                  f"lookups={len(ops) - len(applies)} "
+                  f"applies={len(applies)} offered_qps={rep['offered_qps']} "
+                  f"goodput_qps={rep['goodput_qps']} availability="
+                  f"{rep['availability']} sojourn_ms p50={rep['p50_ms']} "
+                  f"p99={rep['p99_ms']} service_ms "
+                  f"p50={rep['p50_service_ms']} "
+                  f"p99={rep['p99_service_ms']} duration_s="
+                  f"{rep['duration_s']} launches gather={gathers} "
+                  f"scatter={scatters} wasted={wasted}")
+        launches = {"flash_attention": fa.launches, **er.launches,
+                    **dp.launches}
+        check(not left_the_card.is_set() and server._dev_serving,
+              "the shard left the card during the scenarios")
+        check(server.table.tobytes() == replay.tobytes(),
+              "the final table differs from the host replay")
+        print(f"press: every op of both scenarios succeeded, the shard "
+              f"served from the card throughout, final table bit-equal to "
+              f"the host replay, kernel launches {launches}, peak_mem_gb="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    finally:
+        done.set()
+        watcher.join()
+        server.close()
+    live = dev.live()
+    dev.close()
+    check(not live, f"device buffers live after close: {live}")
+    print(f"press: no device buffer live after close; phase "
+          f"{time.perf_counter() - phase_t0:.3f} s")
+    return launches
+
+
+def press_capacity(addr):
+    """The reference's capacity unit (``bench_scenarios._calibrate``):
+    Lookups a second of ``PRESS_CALIBRATE_THREADS`` threads in a closed loop
+    on one channel, each Lookup the same ``PRESS_BATCH`` sorted ids."""
+    from brpc_tpu_torch import rpc
+    from brpc_tpu_torch.ps_remote import _pack_lookup_req
+
+    rng = np.random.default_rng(PRESS_SEED)
+    req = _pack_lookup_req(np.sort(rng.integers(0, PS_VOCAB, PRESS_BATCH))
+                           .astype(np.int32))
+    ch = rpc.Channel(addr, timeout_ms=2000)
+    counts = [0] * PRESS_CALIBRATE_THREADS
+    stop = time.monotonic() + PRESS_CALIBRATE_S
+
+    def loop(i):
+        while time.monotonic() < stop:
+            ch.call("Ps", "Lookup", req)
+            counts[i] += 1
+
+    threads = [threading.Thread(target=loop, args=(i,))
+               for i in range(PRESS_CALIBRATE_THREADS)]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    finally:
+        ch.close()
+    return sum(counts) / PRESS_CALIBRATE_S
+
+
+def fabric_line(fabric_rows, fabric_launches, press_launches):
     """The fabric's four rows of the kernels line."""
     source = "brpc_tpu_torch/csrc/device_programs.cu"
     lines = {"add": 54, "reduce_sum": 64, "all_reduce_sum": 76,
@@ -1745,7 +1903,8 @@ def fabric_line(fabric_rows, fabric_launches):
         "name": kind, "route": "cuda", "source": source,
         "replaces": f"cpp/device/pjrt_executable.cc:{lines[kind]}",
         "design": designs[kind], "launches": fabric_launches[kind],
-        "launches_by_path": {"device_fabric": fabric_launches[kind]},
+        "launches_by_path": {"device_fabric": fabric_launches[kind],
+                             "press": press_launches[kind]},
         **fabric_rows[kind]} for kind in FABRIC_KINDS]
 
 
@@ -1773,6 +1932,7 @@ def main() -> int:
     collective = phase_ps_collective(table, card)
     model_parallel = phase_model_parallel(card, dense_loss)
     fabric, fabric_rows = phase_device_fabric()
+    pressed = phase_press(table)
 
     b, t = REQUESTS[0]
     row = rows[(b, t, torch.bfloat16, True)]
@@ -1784,28 +1944,34 @@ def main() -> int:
         "design": "wgmma+tma, split-p", "launches": launches,
         "launches_by_path": {"serve": launches, "model_parallel":
                              model_parallel["flash_attention"],
-                             "device_fabric": fabric["flash_attention"]},
+                             "device_fabric": fabric["flash_attention"],
+                             "press": pressed["flash_attention"]},
         **row}, {
         "name": "gather_rows", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:100",
         "design": "StableHLO device program, not Pallas; a block per id",
-        "launches": ps_launches["gather_rows"] + collective["gather_rows"],
+        "launches": ps_launches["gather_rows"] + collective["gather_rows"]
+        + pressed["gather_rows"],
         "launches_by_path": {"ps_serve": ps_launches["gather_rows"],
                              "ps_collective": collective["gather_rows"],
                              "model_parallel": model_parallel["gather_rows"],
-                             "device_fabric": fabric["gather_rows"]},
+                             "device_fabric": fabric["gather_rows"],
+                             "press": pressed["gather_rows"]},
         **ps_rows["gather_rows"]}, {
         "name": "scatter_sub", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:121",
         "design": "StableHLO device program, not Pallas; one pass over "
                   "the table in 32 KB tiles, ids grouped and sorted per "
                   "tile in shared memory",
-        "launches": ps_launches["scatter_sub"] + collective["scatter_sub"],
+        "launches": ps_launches["scatter_sub"] + collective["scatter_sub"]
+        + pressed["scatter_sub"],
         "launches_by_path": {"ps_serve": ps_launches["scatter_sub"],
                              "ps_collective": collective["scatter_sub"],
                              "model_parallel": model_parallel["scatter_sub"],
-                             "device_fabric": fabric["scatter_sub"]},
-        **ps_rows["scatter_sub"]}, *fabric_line(fabric_rows, fabric)]}))
+                             "device_fabric": fabric["scatter_sub"],
+                             "press": pressed["scatter_sub"]},
+        **ps_rows["scatter_sub"]},
+        *fabric_line(fabric_rows, fabric, pressed)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@
 A fresh interpreter imports every module of ``brpc_tpu_torch`` and
 ``chip_smoke`` and then finds neither package in ``sys.modules``; an AST
 scan finds no import of either in the sources, the port's measurement
-scripts (``fabric_routes.py``, ``tp_scaling.py``) included.
+scripts (``fabric_routes.py``, ``tp_scaling.py``) included. The port's
+command-line tools (the linter, the fuzzer, the press harness), each run
+in a fresh interpreter, load neither package.
 """
 
 import ast
@@ -31,6 +33,37 @@ print(" ".join(names), "|", bad)
 """
 
 
+_RUN_CLI = """
+import runpy, sys
+sys.argv = [sys.argv[1]] + sys.argv[2:]
+try:
+    runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "brpc_tpu"))
+print("|", code, bad)
+"""
+
+_CLIS = {
+    "lint": ["brpc_tpu_torch.analysis", "brpc_tpu_torch/wire.py"],
+    "fuzz": ["brpc_tpu_torch.analysis.fuzz", "--seed", "0", "--iters", "2",
+             "--no-memcheck"],
+    "press": ["brpc_tpu_torch.press", "--record", "{tmp}/t.trace",
+              "--duration", "0.1"],
+}
+
+
+@pytest.mark.parametrize("cli", sorted(_CLIS))
+def test_cli_loads_neither_jax_nor_reference(cli, tmp_path):
+    args = [a.format(tmp=tmp_path) for a in _CLIS[cli]]
+    out = subprocess.run([sys.executable, "-c", _RUN_CLI] + args, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    code, bad = out.stdout.rsplit("|", 1)[1].split(" ", 2)[1:]
+    assert code in ("0", "None") and bad.strip() == "[]", out.stdout
+
+
 def _forbidden(name):
     return name.split(".")[0] in ("jax", "jaxlib", "brpc_tpu")
 
@@ -51,7 +84,11 @@ def test_imports_pull_in_neither_jax_nor_reference():
             "brpc_tpu_torch.parallel.functional",
             "brpc_tpu_torch.parallel.tensor_parallel",
             "brpc_tpu_torch.parallel.ring", "brpc_tpu_torch.parallel.pipeline",
-            "brpc_tpu_torch.models.moe", "brpc_tpu_torch.dryrun"} \
+            "brpc_tpu_torch.models.moe", "brpc_tpu_torch.dryrun",
+            "brpc_tpu_torch.press", "brpc_tpu_torch.analysis.callgraph",
+            "brpc_tpu_torch.analysis.lint", "brpc_tpu_torch.analysis.fuzz",
+            "brpc_tpu_torch.analysis.native",
+            "brpc_tpu_torch.analysis.__main__"} \
         <= set(names.split())
     assert bad.strip() == "[]"
 
