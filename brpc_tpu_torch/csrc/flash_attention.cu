@@ -1,5 +1,5 @@
-// Forward flash attention for Hopper (sm_90a): a tensor-core kernel for
-// bf16 and the SIMT kernel of the first port for f32.
+// Forward flash attention for Hopper (sm_90a): two tensor-core kernels,
+// one for bf16 and one for f32.
 //
 // Replaces the Pallas kernel of brpc_tpu/ops/flash_attention.py
 // (`_kernel`, launched by `flash_attention` through `pl.pallas_call`) and
@@ -12,10 +12,9 @@
 //
 // Bound on the H100 SXM: the function needs 4*B*Hq*D operations for every
 // (query, key) pair the mask keeps (2*B*Hq*T*(T+1)*D causal), against 989
-// TFLOP/s of bf16 tensor-core rate, or 67 TFLOP/s of f32 outside the tensor
-// cores for f32 inputs; it moves the q, k, v and o bytes once against
-// 3.35 TB/s. At the Llama-3-8B head shapes (Hq 32, Hkv 8, D 128, T >= 512)
-// the operations bound it.
+// TFLOP/s of bf16 tensor-core rate; it moves the q, k, v and o bytes once
+// against 3.35 TB/s. At the Llama-3-8B head shapes (Hq 32, Hkv 8, D 128,
+// T >= 512) the operations bound it. For f32 see below.
 //
 // bf16: flash_fwd_wgmma_kernel. One block of three warpgroups per (128 query
 // rows, query head, batch row), heaviest causal tiles first. Warpgroup 0
@@ -49,14 +48,49 @@
 // p_lo carries p to about 2^-17 of itself. That second P V product is this
 // kernel's cost (1.5x the bound's operations), not part of the bound.
 //
-// f32: flash_fwd_kernel, kept as the first port wrote it: a TF32
-// tensor-core product would break the 2e-5 f32 bound, f32 is on no serving
-// path, and this kernel runs at 27-38 % of the f32 bound. One block of 256
-// threads per (64 query rows, query head, batch row); Q, one K or V tile
-// and the 64x64 score tile in shared memory as f32; a 16x16 thread grid
-// computes both products with f32 FMAs; four threads per query row reduce
-// the row's max and sum with warp shuffles; K and padded Q rows are strided
-// D+1 floats so that the product reads no bank twice.
+// f32: flash_fwd_split_tf32_kernel. An f32 product outside the tensor
+// cores peaks at 67 TFLOP/s; the tensor cores take f32 only as TF32 (10
+// mantissa bits, 495 TFLOP/s), and one TF32 product misses the f32 gate
+// (2e-5 of the plain version) by far, as tests/test_torch_flash_attention.py
+// shows on the CPU. So both products are split TF32: each f32 operand x is
+// x_hi = tf32(x) and x_lo = tf32(x - x_hi), rounded as cvt.rna.tf32.f32
+// rounds, and a product a*b is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi, summed in
+// f32. That carries about 21 bits of each operand; the dropped a_lo*b_lo is
+// about 2^-22 of the product. Three TF32 products cost 3x the operations
+// at 495 TFLOP/s, which is 2.5x the SIMT peak: the f32 bound is the smaller
+// of the two, 3x the operations at 495e12 (chip_smoke.py prints both).
+//
+// The products are mma.sync m16n8k8 tf32, not wgmma: wgmma reads its B
+// operand from shared memory only, so a split B would need hi and lo tiles
+// written back to shared memory (twice the bytes of the raw tiles, and a
+// pass and a barrier a tile), and tf32 wgmma takes only K-major operands,
+// which V (keys are its rows) is not. mma.sync takes every operand from
+// registers: each thread loads its fragments from the raw f32 tiles and
+// splits them in registers, so shared memory holds raw tiles only and V is
+// read row-major as it lies. One block of eight warps per (128 query rows,
+// query head, batch row), heaviest causal tiles first; each warp owns 16
+// query rows. Thread 0 issues TMA copies of the Q tile and of 64-row K and
+// V tiles into a two-stage ring (separate K and V buffers, full and empty
+// mbarriers for each), f32 rows in the 128-byte swizzle (32 floats a row,
+// D/32 such atoms side by side): the first two tiles at the start, and
+// each later one into the stage every warp has just released, so the next
+// tile is in flight while the warps compute. No warp only loads: with
+// nine warps one scheduler of the SM holds three, which caps every thread
+// at 168 registers, and the products spill there; eight warps get 255.
+// Each warp scales its Q rows by D^-0.5 in place once. S = Q K^T takes A
+// fragments of Q and B fragments of K straight from the swizzled tiles
+// (the swizzle makes every fragment load free of bank conflicts); the mask
+// and the online softmax run on the accumulator in registers (row max and
+// sum over the four threads of a row by shuffles, exponents as
+// 2^(s*log2e - m*log2e)). P goes into O += P V from the registers that
+// hold it: the accumulator gives a thread keys 2t and 2t+1 of each 8, and
+// the k8 step's order of keys is free as long as A and B agree, so A's
+// columns t and t+4 are keys 2t and 2t+1 and each thread loads V's rows
+// 2t and 2t+1 for its B fragment. Each tile's P V goes into a fresh
+// accumulator, added to O in f32 (the tensor cores' sums drift over long
+// chains; see the loop). Shared memory at D=128: 64 KB of Q and 128 KB of
+// K/V ring; no round trip of the scores. The output is written from the
+// registers as float2, rows >= T dropped.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -68,208 +102,408 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // key rows per K/V tile
-constexpr int kThreads = 256;  // a 16x16 grid of threads
-constexpr float kMasked = -1e30f;
+// cuTensorMapEncodeTiled from the driver, reached through the runtime so
+// that the library needs no link flag.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map of a contiguous [B,T,H,D] tensor of `elem`-byte elements whose box
+// is `rows` positions of one head and `inner` elements of the head dim, in
+// the given swizzle (64 or 128 bytes).
+bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                const void* ptr, int b, int seq, int heads, int d, int inner,
+                int rows, int swizzle) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads),
+                              cuuint64_t(seq), cuuint64_t(b)};
+  const cuuint64_t strides[3] = {cuuint64_t(d) * elem,
+                                 cuuint64_t(heads) * d * elem,
+                                 cuuint64_t(seq) * heads * d * elem};
+  const cuuint32_t box[4] = {cuuint32_t(inner), 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                           : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace
+
+// ---- f32: split TF32 products on the tensor cores -------------------------
+
+namespace tf32 {
+
+using namespace hopper;
+
+constexpr int kWarps = 8;               // 16 query rows each
+constexpr int kBQ = 16 * kWarps;        // query rows per block
+constexpr int kBK = 64;                 // key rows per K/V tile
+constexpr int kStages = 2;              // K/V tiles in flight
+constexpr int kThreads = 32 * kWarps;  // thread 0 also issues the loads
+constexpr int kRow = 32;                // floats in a 128-byte swizzled row
+constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (size_t(kBQ) * (D + 1) + size_t(kBK) * (D + 1) +
-          size_t(kBQ) * (kBK + 1) + kBQ);
+struct Tile {
+  static_assert(D == 32 || D == 64 || D == 128, "D must be 32, 64 or 128");
+  // A tile is D / 32 atoms side by side, each [rows][32 floats] swizzled.
+  static constexpr int kAtoms = D / kRow;
+  static constexpr int kQAtom = kBQ * kRow;   // floats
+  static constexpr int kKVAtom = kBK * kRow;
+  static constexpr int kQFloats = kAtoms * kQAtom;
+  static constexpr int kKVFloats = kAtoms * kKVAtom;
+  static constexpr int kBarriers = 1 + 4 * kStages;
+  // Q, the K ring, the V ring, the barriers, and room to align to 1024.
+  static constexpr int kSmem =
+      4 * (kQFloats + 2 * kStages * kKVFloats) + 8 * kBarriers + 1024;
+};
+
+// Float offset of (row, col) in a tile of atoms `atom` floats apart: TMA's
+// 128-byte swizzle puts the row's 16-byte chunk c at c ^ (row % 8).
+template <int kAtom>
+__device__ __forceinline__ int at(int row, int col) {
+  return (col / kRow) * kAtom + row * kRow +
+         ((((col % kRow) / 4) ^ (row % 8)) << 2) + col % 4;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int seq,
-                     int hq, int hkv, int causal, float scale) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int kCols = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;                      // [kBQ][D + 1], pre-scaled
-  float* kv_s = q_s + kBQ * (D + 1);      // K as [kBK][D + 1], then V [kBK][D]
-  float* s_s = kv_s + kBK * (D + 1);      // [kBQ][kBK + 1], scores then P
-  float* row_s = s_s + kBQ * (kBK + 1);   // [kBQ]: alpha per tile, l at the end
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero: half an ulp of TF32 added to the magnitude, the 13 low bits
+// cleared), in two integer operations, which issue faster than the cvt.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b for one m16n8k8 tile, TF32 in, f32 sums.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An A fragment split once, for every B fragment it meets.
+struct SplitA {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ explicit SplitA(const float (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split(a[i], hi[i], lo[i]);
+  }
+};
+
+// d += a b, b split here: a_lo b_hi + a_hi b_lo + a_hi b_hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const SplitA& a,
+                                     const float (&b)[2]) {
+  uint32_t hi[2], lo[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) split(b[i], hi[i], lo[i]);
+  mma(d, a.lo, hi);
+  mma(d, a.hi, lo);
+  mma(d, a.hi, hi);
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_split_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                float* __restrict__ o, int seq, int hq,
+                                int group, int causal, float scale) {
+  using G = Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  float* const sm =
+      reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)));
+  float* const q_t = sm;
+  const float* const k_t = sm + G::kQFloats;  // kStages tiles
+  const float* const v_t = k_t + kStages * G::kKVFloats;
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + 4 * G::kQFloats;
+  const uint32_t v_s = k_s + 4 * kStages * G::kKVFloats;
+  const uint32_t bars = v_s + 4 * kStages * G::kKVFloats;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * kStages + s); };
 
   // Heaviest causal q-tiles first, so the short ones fill the tail.
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q0 = qt * kBQ;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // product grid
-  const int sr = tid / 4, part = tid % 4;  // softmax: 4 threads per row
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int n_all = (seq + kBK - 1) / kBK;
+  const int n_tiles = causal ? min((q0 + kBQ - 1) / kBK + 1, n_all) : n_all;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  const int64_t q_stride = int64_t(hq) * D;  // between sequence positions
-  const int64_t kv_stride = int64_t(hkv) * D;
-  const int64_t q_off = (int64_t(b) * seq * hq + h) * D;
-  const int64_t kv_off = (int64_t(b) * seq * hkv + h / (hq / hkv)) * D;
-  const T* q_base = q + q_off;
-  const T* k_base = k + kv_off;
-  const T* v_base = v + kv_off;
-  T* o_base = o + q_off;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), kThreads);  // every thread
+      mbar_init(v_empty(s), kThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, t = q0 + r;
-    q_s[r * (D + 1) + d] = t < seq ? to_f32(q_base[t * q_stride + d]) * scale
-                                   : 0.f;
+  // Thread 0 loads: Q and the first kStages K/V tiles now, and each later
+  // tile into the stage the block has just released (see the loop).
+  auto load_kv = [&](int n) {
+    const int s = n % kStages;
+    mbar_expect_tx(k_full(s), 4 * G::kKVFloats);
+    for (int a = 0; a < G::kAtoms; ++a)
+      tma_load_4d(k_s + 4 * (s * G::kKVFloats + a * G::kKVAtom), &tm_k,
+                  k_full(s), a * kRow, hk, n * kBK, b);
+    mbar_expect_tx(v_full(s), 4 * G::kKVFloats);
+    for (int a = 0; a < G::kAtoms; ++a)
+      tma_load_4d(v_s + 4 * (s * G::kKVFloats + a * G::kKVAtom), &tm_v,
+                  v_full(s), a * kRow, hk, n * kBK, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 4 * G::kQFloats);
+    for (int a = 0; a < G::kAtoms; ++a)
+      tma_load_4d(q_s + 4 * a * G::kQAtom, &tm_q, q_full, a * kRow, h, q0,
+                  b);
+    for (int n = 0; n < min(kStages, n_tiles); ++n) load_kv(n);
   }
 
-  float m_row = -INFINITY, l_row = 0.f;  // softmax state of row sr
-  float acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+  // ---- every warp: 16 query rows ----
+  // Fragment coordinates of mma m16n8k8: row g and g + 8, column t and
+  // t + 4 of A; column g, row t and t + 4 of B; row g and g + 8, columns
+  // 2t and 2t + 1 of the accumulator.
+  const int g = lane / 4, t = lane % 4;
+  const int r0 = 16 * warp;  // this warp's first row in the tile
+  const int first_row = q0 + r0;
+  const int n_mine = causal ? min((first_row + 15) / kBK + 1, n_all) : n_all;
 
-  const int n_tiles_all = (seq + kBK - 1) / kBK;
-  const int n_tiles =
-      causal ? min((q0 + kBQ - 1) / kBK + 1, n_tiles_all) : n_tiles_all;
+  float acc[D / 8][4];  // O, 8 head-dim columns a tile
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};              // this thread's share of the sum
 
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the last tile's readers of kv_s and s_s are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, d = i % D, s = k0 + r;
-      kv_s[r * (D + 1) + d] = s < seq ? to_f32(k_base[s * kv_stride + d]) : 0.f;
-    }
-    __syncthreads();
+  mbar_wait(q_full, 0);
+  // q * D^-0.5 in f32, as the reference scales it, in this warp's own rows.
+#pragma unroll
+  for (int a = 0; a < G::kAtoms; ++a)
+    for (int i = lane; i < 16 * kRow; i += 32)
+      q_t[a * G::kQAtom + r0 * kRow + i] *= scale;
+  __syncwarp();
 
-    // S = Q K^T; this thread owns rows ty*4+i and columns tx+16*j.
-    float sc[4][4];
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s = n % kStages;
+    const uint32_t parity = (n / kStages) & 1;
+    const bool mine = n < n_mine;
+    float sc[kBK / 8][4];  // S, then P: 8 keys a tile
+
+    mbar_wait(k_full(s), parity);
+    if (mine) {
+      const float* kt = k_t + s * G::kKVFloats;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+        for (int i = 0; i < 4; ++i) sc[j][i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty * 4 + i) * (D + 1) + d];
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int c = 8 * kk + t;
+        const SplitA a({q_t[at<G::kQAtom>(r0 + g, c)],
+                        q_t[at<G::kQAtom>(r0 + g + 8, c)],
+                        q_t[at<G::kQAtom>(r0 + g, c + 4)],
+                        q_t[at<G::kQAtom>(r0 + g + 8, c + 4)]});
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kv_s[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool keep = col < seq && (!causal || col <= row);
-        s_s[(ty * 4 + i) * (kBK + 1) + tx + 16 * j] = keep ? sc[i][j] : kMasked;
+        for (int j = 0; j < kBK / 8; ++j) {
+          const float bk[2] = {kt[at<G::kKVAtom>(8 * j + g, c)],
+                               kt[at<G::kKVAtom>(8 * j + g, c + 4)]};
+          mma3(sc[j], a, bk);
+        }
       }
     }
-    __syncthreads();
+    mbar_arrive(k_empty(s));
 
-    // K is no longer read: stage V while the rows take their softmax step.
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, d = i % D, s = k0 + r;
-      kv_s[r * D + d] = s < seq ? to_f32(v_base[s * kv_stride + d]) : 0.f;
-    }
-    {
-      float* srow = s_s + sr * (kBK + 1) + part * (kBK / 4);
-      float mx = -INFINITY;
+    if (mine) {
+      // Mask, then one online-softmax step, in registers.
+      const int k0 = n * kBK;
+      if (k0 + kBK > seq || (causal && k0 + kBK - 1 > first_row)) {
 #pragma unroll
-      for (int c = 0; c < kBK / 4; ++c) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      // Column 0 lies in the first tile, so m_new is finite from there on
-      // and a fully masked later tile gives alpha 1 and p 0.
-      const float m_new = fmaxf(m_row, mx);
-      const float alpha = expf(m_row - m_new);
-      float sum = 0.f;
+        for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
-      for (int c = 0; c < kBK / 4; ++c) {
-        const float p = expf(srow[c] - m_new);
-        srow[c] = p;
-        sum += p;
+          for (int i = 0; i < 4; ++i) {
+            const int col = k0 + 8 * j + 2 * t + i % 2;
+            const int row = first_row + g + 8 * (i / 2);
+            if (col >= seq || (causal && col > row)) sc[j][i] = kMasked;
+          }
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_row = l_row * alpha + sum;
-      m_row = m_new;
-      if (part == 0) row_s[sr] = alpha;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i / 2] = fmaxf(mx[i / 2], sc[j][i]);
+      float alpha[2], mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // Column 0 lies in the first tile, so m is finite from there on and
+        // a masked column gives p = 0.
+        alpha[r] = fast_exp2((m[r] - mx[r]) * kLog2e);
+        m[r] = mx[r];
+        mc[r] = mx[r] * kLog2e;
+      }
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[j][i] = fast_exp2(fmaf(sc[j][i], kLog2e, -mc[i / 2]));
+          sum[i / 2] += sc[j][i];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] *= alpha[i / 2];
     }
-    __syncthreads();
 
-    // acc = acc * alpha + P V; this thread owns rows ty*4+i, columns tx+16*j.
+    mbar_wait(v_full(s), parity);
+    if (mine) {
+      // O += P V, 8 keys at a time, into a fresh accumulator that is added
+      // to O in f32 registers once a tile: the tensor cores' f32 sums
+      // drift over a long chain (as sums rounded toward zero would), and
+      // one chain over the whole sequence put the output 5-8e-6 from the
+      // plain version at the serving shapes and the f32 request's logits
+      // 1.1e-4 from dense attention; a chain of 24 products a tile gives
+      // 2-4e-6 and 3.4e-5. A's columns t and t + 4 are keys 2t and 2t + 1,
+      // the keys this thread's accumulator holds.
+      const float* vt = v_t + s * G::kKVFloats;
+      float pv[D / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = row_s[ty * 4 + i];
+      for (int jd = 0; jd < D / 8; ++jd)
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= a;
+        for (int i = 0; i < 4; ++i) pv[jd][i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j) {
+        const SplitA a({sc[j][0], sc[j][2], sc[j][1], sc[j][3]});
+#pragma unroll
+        for (int jd = 0; jd < D / 8; ++jd) {
+          const int c = 8 * jd + g;
+          const float bv[2] = {vt[at<G::kKVAtom>(8 * j + 2 * t, c)],
+                               vt[at<G::kKVAtom>(8 * j + 2 * t + 1, c)]};
+          mma3(pv[jd], a, bv);
+        }
+      }
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[jd][i] += pv[jd][i];
     }
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float p[4], vv[kCols];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = s_s[(ty * 4 + i) * (kBK + 1) + c];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) vv[j] = kv_s[c * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+    mbar_arrive(v_empty(s));
+    // Once every warp is done with this stage, the next tile but one
+    // goes into it. Warp 0 waits here meanwhile; the others go on with
+    // the tile the other stage holds.
+    if (threadIdx.x == 0 && n + kStages < n_tiles) {
+      mbar_wait(k_empty(s), parity);
+      mbar_wait(v_empty(s), parity);
+      load_kv(n + kStages);
     }
   }
 
-  __syncthreads();
-  if (part == 0) row_s[sr] = l_row;
-  __syncthreads();
+  // Epilogue: acc / max(l, 1e-20) from the registers, rows >= T dropped.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty * 4 + i;
-    if (t >= seq) continue;
-    const float l = fmaxf(row_s[ty * 4 + i], 1e-20f);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-20f);
+    const int row = first_row + g + 8 * r;
+    if (row >= seq) continue;
+    float* out = o + ((int64_t(b) * seq + row) * hq + h) * D + 2 * t;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      store(&o_base[t * q_stride + tx + 16 * j], acc[i][j] / l);
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(out + 8 * j) =
+          make_float2(acc[j][2 * r] / l[r], acc[j][2 * r + 1] / l[r]);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      int b, int seq, int hq, int hkv, int causal,
                      cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+  // TMA reads 16-byte aligned tensors; the output is written as float2.
+  if ((uintptr_t(q) | uintptr_t(k) | uintptr_t(v) | uintptr_t(o)) % 16)
+    return cudaErrorMisalignedAddress;
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode_map(&tm_q, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, q, b, seq, hq,
+                  D, kRow, kBQ, 128) ||
+      !encode_map(&tm_k, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, k, b, seq, hkv,
+                  D, kRow, kBK, 128) ||
+      !encode_map(&tm_v, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, v, b, seq, hkv,
+                  D, kRow, kBK, 128))
+    return cudaErrorInvalidValue;
+  constexpr int smem = Tile<D>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_split_tf32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBQ - 1) / kBQ, hq, b);
   const float scale = float(1.0 / sqrt(double(D)));
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), seq, hq, hkv, causal,
+  flash_fwd_split_tf32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<float*>(o), seq, hq, hq / hkv, causal,
       scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int seq, int hq, int hkv, int d, int causal, void* stream) {
   if (b <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0)
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return int(launch_d<T, 32>(q, k, v, o, b, seq, hq, hkv, causal, s));
-    case 64: return int(launch_d<T, 64>(q, k, v, o, b, seq, hq, hkv, causal, s));
-    case 128: return int(launch_d<T, 128>(q, k, v, o, b, seq, hq, hkv, causal, s));
+    case 32: return int(launch_d<32>(q, k, v, o, b, seq, hq, hkv, causal, s));
+    case 64: return int(launch_d<64>(q, k, v, o, b, seq, hq, hkv, causal, s));
+    case 128: return int(launch_d<128>(q, k, v, o, b, seq, hq, hkv, causal, s));
     default: return int(cudaErrorInvalidValue);
   }
 }
 
-}  // namespace
-
+}  // namespace tf32
 
 // ---- bf16: wgmma and TMA --------------------------------------------------
 
@@ -599,54 +833,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, reached through the runtime so
-// that the library needs no link flag.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A map of a contiguous bf16 [B,T,H,D] tensor whose box is `rows` positions
 // of one head and one atom of the head dim.
 template <int D>
 bool encode(CUtensorMap* map, const void* ptr, int b, int seq, int heads,
             int rows) {
   using G = Tile<D>;
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads),
-                              cuuint64_t(seq), cuuint64_t(b)};
-  const cuuint64_t strides[3] = {cuuint64_t(D) * 2,
-                                 cuuint64_t(heads) * D * 2,
-                                 cuuint64_t(seq) * heads * D * 2};
-  const cuuint32_t box[4] = {cuuint32_t(G::kAtom), 1, cuuint32_t(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            G::kSwizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                               : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, b, seq,
+                    heads, D, G::kAtom, rows, G::kSwizzle);
 }
 
 template <int D>
@@ -695,7 +889,7 @@ extern "C" int brt_flash_attention_f32(const void* q, const void* k,
                                        const void* v, void* o, int b, int seq,
                                        int hq, int hkv, int d, int causal,
                                        void* stream) {
-  return launch<float>(q, k, v, o, b, seq, hq, hkv, d, causal, stream);
+  return tf32::launch(q, k, v, o, b, seq, hq, hkv, d, causal, stream);
 }
 
 extern "C" int brt_flash_attention_bf16(const void* q, const void* k,

@@ -243,11 +243,19 @@ class DeviceClient:
         if want != raw.size:
             raise _rpc_error(5002, f"{raw.size} bytes do not fill {dtype} "
                                    f"{list(dims)}")
-        if not raw.flags.writeable:  # torch.from_numpy wants a writable one
-            raw = raw.copy()
-        host = torch.from_numpy(raw.view(_DTYPES[dtype]).reshape(dims))
+        device = self._torch_device(device_index)
         # A copy on either device: the caller may write its array later.
-        tensor = host.to(self._torch_device(device_index), copy=True)
+        # On the CPU numpy copies, on the calling thread alone: torch's
+        # copy of a large buffer fans out over its intra-op threads, from
+        # every handler thread of a shard at once.
+        if device.type == "cpu":
+            tensor = torch.from_numpy(raw.copy().view(_DTYPES[dtype])
+                                      .reshape(dims))
+        else:
+            if not raw.flags.writeable:  # torch.from_numpy wants that
+                raw = raw.copy()
+            tensor = torch.from_numpy(raw.view(_DTYPES[dtype])
+                                      .reshape(dims)).to(device, copy=True)
         return self._register(tensor, device_index)
 
     def fetch(self, handle: int) -> bytes:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from brpc_tpu_torch.ops import _build
@@ -131,20 +132,50 @@ def _library() -> ctypes.CDLL:
 
 def gather_rows_reference(table: torch.Tensor,
                           ids: torch.Tensor) -> torch.Tensor:
-    """The plain version of ``gather_rows``."""
-    return table.index_select(0, ids)
+    """The plain version of ``gather_rows``. On the CPU numpy's ``take``
+    gathers, on the calling thread alone: torch's ``index_select`` of
+    such sizes fans out over its intra-op threads, from every handler
+    thread of the CPU device client at once (see
+    ``scatter_sub_reference``)."""
+    if table.device.type != "cpu":
+        return table.index_select(0, ids)
+    rows = ids.numpy()
+    _check_range(table, rows)
+    return torch.from_numpy(table.numpy().take(rows, axis=0))
+
+
+def _check_range(table: torch.Tensor, ids: np.ndarray) -> None:
+    if ids.size and not 0 <= ids.min() <= ids.max() < table.shape[0]:
+        raise IndexError(f"ids outside [0, {table.shape[0]})")
 
 
 def scatter_sub_reference(table: torch.Tensor, ids: torch.Tensor,
                           grads: torch.Tensor,
                           lr: torch.Tensor) -> torch.Tensor:
-    """The plain version of ``scatter_sub``: one f32 product ``lr * g`` per
-    gradient, then one f32 subtraction per occurrence, in batch order."""
-    rows = ids.tolist()
-    if rows and not 0 <= min(rows) <= max(rows) < table.shape[0]:
-        raise IndexError(f"ids outside [0, {table.shape[0]})")
-    out = table.clone()
-    step = lr.reshape(()) * grads
-    for i, row in enumerate(rows):
-        out[row].sub_(step[i])
-    return out
+    """The plain version of ``scatter_sub``, on host copies of the
+    operands; the result goes back to the table's device.
+
+    The CPU device client calls it from up to eight handler threads at
+    once, so each step runs on the calling thread alone and only the large
+    ones give the GIL up: the range check, the table's copy and the f32
+    product ``lr * g`` are numpy's (torch's CPU copy and product of such
+    sizes fan out over its intra-op threads from every handler at once,
+    and each small torch call gives the GIL up and waits to take it back),
+    and the subtractions are one ``index_add_`` with ``alpha = -1``
+    (``np.subtract.at`` holds the GIL through its loop). This relies on
+    ``index_add_``'s CPU kernel for a table of two dimensions (ATen's
+    ``index_add_cpu_``; the installed wheel ships no ATen sources) adding
+    ``alpha * step[i]`` to row ``ids[i]`` one id at a time, in batch
+    order, in one f32 rounding each: ``row - step[i]``, as
+    ``np.subtract.at`` computes it. On the card ``index_add_`` adds with
+    atomics in no set order, hence the host.
+    ``tests/test_torch_embedding_rows.py`` holds this bit-equal to
+    ``np.subtract.at`` with many duplicate ids, signed zeros, subnormals
+    and infinities (NaNs by place: where two meet, the payload is the
+    CPU's choice).
+    """
+    rows = ids.cpu()
+    _check_range(table, rows.numpy())
+    out = torch.from_numpy(table.cpu().numpy().copy())
+    step = torch.from_numpy(lr.cpu().numpy() * grads.cpu().numpy())
+    return out.index_add_(0, rows, step, alpha=-1).to(table.device)

@@ -5,11 +5,14 @@
 ``h // (Hq // Hkv)``, blocks clip to T and a T that does not divide them
 raises ``ValueError``. It is forward only, as the reference is.
 
-On CUDA tensors it launches a Hopper kernel of ``csrc/flash_attention.cu``
-and counts the launch in ``launches``: for bf16 the tensor-core kernel (TMA
-tiles, wgmma products, 128 query rows and 64-row K/V tiles, P fed to the
-P·V product as two bf16 halves), for f32 the SIMT kernel (64x64 tiles, f32
-FMAs); the note there says why. On CPU tensors it runs
+On CUDA tensors it launches one of two Hopper kernels of
+``csrc/flash_attention.cu`` and counts the launch in ``launches`` under its
+dtype: for bf16 wgmma products on TMA tiles (128 query rows, 64-row K/V
+tiles, P fed to the P·V product as two bf16 halves); for f32 mma.sync
+products on TMA tiles (128 query rows, 64-row K/V tiles) in split TF32,
+each operand x as tf32(x) + tf32(x - tf32(x)) and each product as three
+TF32 products summed in f32, which holds the f32 bound that one TF32
+product misses. The note there says why. On CPU tensors it runs
 ``flash_attention_reference``, the plain PyTorch version of the same
 arithmetic. The kernels pick their own tiles; ``block_q`` and ``block_k``
 keep the contract and set the plain version's K/V tile.
@@ -23,12 +26,14 @@ import torch
 
 from brpc_tpu_torch.ops import _build
 
-# Kernel launches; a caller sets it to 0 before a run and reads it after.
-launches = 0
+# Kernel launches by kernel (its dtype); a caller sets them to 0 before a
+# run and reads them after.
+launches = {"bf16": 0, "f32": 0}
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
-_SYMBOLS = {torch.float32: "brt_flash_attention_f32",
-            torch.bfloat16: "brt_flash_attention_bf16"}
+_KERNELS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_SYMBOLS = {"f32": "brt_flash_attention_f32",
+            "bf16": "brt_flash_attention_bf16"}
 _MASKED = -1e30
 
 
@@ -46,7 +51,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"Hq {hq} is not a multiple of Hkv {k.shape[2]}")
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {SUPPORTED_HEAD_DIMS}")
-    if q.dtype not in _SYMBOLS or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _KERNELS or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"want q, k, v all float32 or all bfloat16; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -100,9 +105,9 @@ class _ForwardOnly(torch.autograd.Function):
 
 
 def _launch(q, k, v, causal: bool) -> torch.Tensor:
-    global launches
     b, t, hq, d = q.shape
-    fn = getattr(_library(), _SYMBOLS[q.dtype])
+    kernel = _KERNELS[q.dtype]
+    fn = getattr(_library(), _SYMBOLS[kernel])
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -111,7 +116,7 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    launches += 1
+    launches[kernel] += 1
     return out.reshape(b, t, hq * d)
 
 

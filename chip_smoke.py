@@ -12,7 +12,10 @@ is fatal when it fails:
    serving path (Llama-3-8B heads: Hq 32, Hkv 8, D 128), f32 and bf16,
    causal and not, with its time from CUDA events and the host's time to
    issue each call, its achieved TFLOP/s, its bound, the plain version's
-   time and one PyTorch library call for the same function;
+   time and one PyTorch library call for the same function (for f32 both
+   bounds: the operations at the SIMT rate, and three times them at the
+   TF32 rate, the split-TF32 products the kernel takes; the row's bound is
+   the smaller);
 3. the parameter server's two kernels at Llama-3-8B's embedding table
    (128256 x 4096 f32, drawn from a seed as the shard draws it) and
    ``PS_K`` Zipf-skewed ids: the row gather bit-equal to ``index_select``,
@@ -24,7 +27,7 @@ is fatal when it fails:
    scatter-sub again at 32 times the bucket, bit-equal to its plain version
    and timed in turns beside the same two; then the tiny
    config's forward on the card against the same forward on the CPU, in
-   f32 and bf16 compute;
+   f32 and bf16 compute (one launch of each K1 kernel a layer);
 4. serving at Llama-3-8B width, all 32 layers, weights drawn from a seed:
    three request shapes through ``LlamaModel`` with the flash-attention
    kernel, each served ``REPEATS`` times after a warm-up and checked for
@@ -33,7 +36,11 @@ is fatal when it fails:
    request's logits against the dense attention path;
 5. one more request of each shape under ``torch.profiler``: device time by
    kind of kernel, the attention kernel's share and the device's idle
-   share over the request;
+   share over the request; then the same weights at f32 compute, one
+   request of (1, 2048) through K1's f32 kernel: a warm-up and
+   ``F32_REPEATS`` timed requests, each checked as above with 32 f32
+   launches, the logits against the dense f32 path, and one request under
+   ``torch.profiler``;
 6. the tiny config trained at f32 compute, three AdamW steps on the card
    against the same three on the CPU, then a checkpoint saved after step 2
    on the card, restored into a fresh template and stepped: it must give
@@ -123,7 +130,10 @@ is fatal when it fails:
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``), phases 10 ("model_parallel"), 11
-("device_fabric") and 12 ("press") included.
+("device_fabric") and 12 ("press") included; K1 has one entry a kernel,
+bf16 ("flash_attention", main path "serve") and f32
+("flash_attention_f32", main path "serve_f32"), each with the tiny
+phase's launches ("tiny").
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -151,6 +161,9 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+# f32 on the tensor cores: an f32-accurate product is three TF32 products
+# (split operands), at the TF32 rate.
+TF32_FLOPS, SPLIT_TF32_PRODUCTS = 495e12, 3
 
 # Llama-3-8B attention heads; the requests' (B, T).
 HQ, HKV, D = 32, 8, 128
@@ -170,6 +183,15 @@ BF16_REL, BF16_FLOOR = 2.0 ** -7, 2.0 ** -4
 # max 0.1309 and mean 0.01828 on logits of |max| 5.4 (PERF.md, PR 1); the
 # bounds allow about twice that.
 DENSE_MAX_ABS, DENSE_MEAN_ABS = 0.25, 0.04
+# The same against dense attention at f32 compute (TF32 off), one request
+# of (1, 2048) served F32_REPEATS times after a warm-up: both paths compute
+# in f32 and differ in the attention's order of sums. On the H100 the f32
+# SIMT kernel this path had before the tensor-core one gave max 3.42131e-05
+# and mean 4.45252e-06 on logits of |max| 5.49 (f32_dense_gap.py --root on
+# a checkout of commit 7c0e8ce, PERF.md, PR 11); the bounds are twice that,
+# rounded down.
+F32_REPEATS = 3
+DENSE_F32_MAX_ABS, DENSE_F32_MEAN_ABS = 6.8e-5, 8.9e-6
 # Tiny training, card against CPU, f32 compute with TF32 off. The first
 # step's gradients agree per leaf within 1e-5 of the leaf's largest, as
 # the port's gradients agree with the reference's on the CPU; the losses
@@ -255,6 +277,21 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+def zero_counts(*tables) -> None:
+    """Sets every kernel's launch count in the given tables to 0."""
+    for table in tables:
+        for kernel in table:
+            table[kernel] = 0
+
+
+def flash_counts() -> dict:
+    """K1's launches by kernel, under the names of the kernels line."""
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_attention": fa.launches["bf16"],
+            "flash_attention_f32": fa.launches["f32"]}
+
+
 def kernel_error(got, want):
     """(max |got - want|, the worst element's |got - want| over its bound);
     the kernel agrees with its plain version when the second is <= 1."""
@@ -335,14 +372,21 @@ def attention_ops(b, t, causal):
 
 
 def attention_bound(b, t, causal, dtype):
-    """(ms, what bounds it): the operations of the (query, key) pairs the
-    mask keeps against the peak for the dtype, or q, k, v and o moved once
-    against the memory rate, whichever takes longer."""
+    """(ms, what bounds it, the f32 SIMT bound in ms or None): the
+    operations of the (query, key) pairs the mask keeps against the peak
+    for the dtype, or q, k, v and o moved once against the memory rate,
+    whichever takes longer. f32 has two ways to its peak: the operations at
+    the SIMT rate, or three times them (split TF32) at the TF32 rate; the
+    bound is the faster of the two, so no design reads over 100 % of it."""
     ops = attention_ops(b, t, causal)
     nbytes = (2 * b * t * HQ * D + 2 * b * t * HKV * D) * dtype.itemsize
     t_ops, t_bytes = ops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    simt_ms = None
+    if dtype == torch.float32:
+        simt_ms = 1e3 * max(t_ops, t_bytes)
+        t_ops = min(t_ops, SPLIT_TF32_PRODUCTS * ops / TF32_FLOPS)
     return 1e3 * max(t_ops, t_bytes), \
-        "operations" if t_ops >= t_bytes else "bytes"
+        "operations" if t_ops >= t_bytes else "bytes", simt_ms
 
 
 def phase_build():
@@ -428,28 +472,37 @@ def phase_kernels():
                 library_ms, library_host_ms = time_ms(
                     lambda: torch.nn.functional.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
-                bound_ms, bound_by = attention_bound(b, t, causal, dtype)
+                bound_ms, bound_by, simt_ms = attention_bound(b, t, causal,
+                                                              dtype)
                 tflops = attention_ops(b, t, causal) / ms / 1e9
                 rows[(b, t, dtype, causal)] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=bound_by,
-                    library_ms=library_ms)
+                    library_ms=library_ms, **({} if simt_ms is None else
+                                              {"simt_bound_ms": simt_ms}))
                 print(f"flash_attention {name}: max_abs_err={err:.3e} "
                       f"err_of_tolerance={of_tol:.4f} ms={ms:.4f} "
                       f"host_ms={host_ms:.4f} tflops={tflops:.1f} "
                       f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
                       f"library_host_ms={library_host_ms:.4f} "
                       f"bound_ms={bound_ms:.4f} "
-                      f"({bound_by}) of_bound={bound_ms / ms:.4f}")
+                      f"({bound_by}) of_bound={bound_ms / ms:.4f}" + (
+                          "" if simt_ms is None else
+                          f" (split TF32 bound; f32 SIMT bound "
+                          f"{simt_ms:.4f} ms, of_simt_bound="
+                          f"{simt_ms / ms:.4f})"))
     return rows
 
 
 def phase_tiny():
-    """The tiny config on the card against the same forward on the CPU."""
+    """The tiny config on the card against the same forward on the CPU;
+    returns K1's launches by kernel."""
     from brpc_tpu_torch.models import llama
+    from brpc_tpu_torch.ops import flash_attention as fa
     from brpc_tpu_torch.ops.flash_attention import flash_attention
     from brpc_tpu_torch.utils.tree import tree_map
 
+    zero_counts(fa.launches)
     tokens = torch.randint(0, 512, (2, 64),
                            generator=torch.Generator().manual_seed(0))
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 0.1)):
@@ -463,6 +516,10 @@ def phase_tiny():
         print(f"tiny forward {str(dtype)[6:]}: card against CPU max |err| "
               f"{err:.3e} (bound {tol})")
         check(err <= tol, f"tiny forward {dtype}: {err} > {tol}")
+    launches = flash_counts()
+    check(launches == {"flash_attention": cfg.n_layers,
+                       "flash_attention_f32": cfg.n_layers},
+          f"tiny forward launches {launches}")
     # Ids past both ends of the vocabulary are clamped as jnp clamps them,
     # on the card too (no device-side assert); such a target makes the
     # loss NaN, as the reference's.
@@ -479,10 +536,12 @@ def phase_tiny():
           f"|err| {err:.3e} (bound 1e-4), loss {loss}")
     check(err <= 1e-4 and math.isnan(loss),
           f"out-of-vocabulary ids: {err}, loss {loss}")
+    return launches
 
 
 def phase_serve():
-    """Llama-3-8B width through the kernel; returns the launch count."""
+    """Llama-3-8B width through the kernel, in bf16 and then in f32 on the
+    same weights; returns K1's launches by kernel for each of the two."""
     from brpc_tpu_torch.models import llama
     from brpc_tpu_torch.ops import flash_attention as fa
 
@@ -507,57 +566,89 @@ def phase_serve():
             model(tokens)
         torch.cuda.synchronize()
 
-        fa.launches = 0
+        zero_counts(fa.launches)
         for i, tokens in enumerate(requests):
-            b, t = tokens.shape
-            torch.cuda.reset_peak_memory_stats()
-            latencies = []
-            for _ in range(REPEATS):
-                logits = None  # the peak counts one request's logits only
-                before = fa.launches
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits = model(tokens)
-                torch.cuda.synchronize()
-                latencies.append(time.perf_counter() - t0)
-                check(logits.shape == (b, t, cfg.vocab_size)
-                      and logits.dtype == torch.float32,
-                      f"request {b}x{t}: logits {logits.dtype} "
-                      f"{tuple(logits.shape)}")
-                check(bool(torch.isfinite(logits).all()),
-                      f"request {b}x{t}: non-finite logits")
-                check(fa.launches - before == cfg.n_layers,
-                      f"request {b}x{t}: {fa.launches - before} kernel "
-                      f"launches, want {cfg.n_layers}")
-            median = statistics.median(latencies)
-            print(f"request B={b} T={t} x{REPEATS}: latency_ms median="
-                  f"{median * 1e3:.3f} min={min(latencies) * 1e3:.3f} "
-                  f"max={max(latencies) * 1e3:.3f} tokens_per_s median="
-                  f"{b * t / median:.1f} peak_mem_gb="
-                  f"{torch.cuda.max_memory_allocated() / 1e9:.3f} "
-                  f"launches_each={cfg.n_layers}")
+            logits = serve_requests(model, cfg, tokens, REPEATS, "bf16")
             if i == 0:
-                compare_dense(llama, params, cfg, tokens, logits)
+                compare_dense(llama, params, cfg, tokens, logits,
+                              DENSE_MAX_ABS, DENSE_MEAN_ABS)
             del logits
-        launches = fa.launches
-        check(launches == len(requests) * REPEATS * cfg.n_layers,
+        launches = flash_counts()
+        check(launches == {"flash_attention": len(requests) * REPEATS
+                           * cfg.n_layers, "flash_attention_f32": 0},
               f"{launches} launches over {len(requests) * REPEATS} requests")
         for tokens in requests:
             profile_run(f"B={tokens.shape[0]} T={tokens.shape[1]}",
                         lambda: model(tokens))
-    return launches
+
+        # The same weights at f32 compute: K1's f32 kernel, 32 a request.
+        cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+        model32 = llama.LlamaModel(cfg32, params, attn_fn=fa.flash_attention)
+        tokens = requests[0]
+        model32(tokens)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts(fa.launches)
+        logits = serve_requests(model32, cfg32, tokens, F32_REPEATS, "f32")
+        f32_launches = flash_counts()
+        check(f32_launches == {"flash_attention": 0, "flash_attention_f32":
+                               F32_REPEATS * cfg.n_layers},
+              f"f32 serving launches {f32_launches}")
+        compare_dense(llama, params, cfg32, tokens, logits,
+                      DENSE_F32_MAX_ABS, DENSE_F32_MEAN_ABS)
+        del logits
+        profile_run(f"f32 B={tokens.shape[0]} T={tokens.shape[1]}",
+                    lambda: model32(tokens))
+    return {"serve": launches, "serve_f32": f32_launches}
 
 
-def compare_dense(llama, params, cfg, tokens, flash_logits):
+def serve_requests(model, cfg, tokens, repeats, kernel):
+    """Serves ``tokens`` ``repeats`` times, each checked for shape, dtype,
+    finiteness and one launch of K1's ``kernel`` a layer; prints latency,
+    tokens/s and peak memory; returns the last logits."""
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    b, t = tokens.shape
+    torch.cuda.reset_peak_memory_stats()
+    latencies = []
+    for _ in range(repeats):
+        logits = None  # the peak counts one request's logits only
+        before = dict(fa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = model(tokens)
+        torch.cuda.synchronize()
+        latencies.append(time.perf_counter() - t0)
+        check(logits.shape == (b, t, cfg.vocab_size)
+              and logits.dtype == torch.float32,
+              f"request {b}x{t}: logits {logits.dtype} "
+              f"{tuple(logits.shape)}")
+        check(bool(torch.isfinite(logits).all()),
+              f"request {b}x{t}: non-finite logits")
+        check(fa.launches == {**before, kernel: before[kernel]
+                              + cfg.n_layers},
+              f"request {b}x{t}: launches {fa.launches} after {before}, "
+              f"want {cfg.n_layers} of {kernel}")
+    median = statistics.median(latencies)
+    print(f"request {kernel} B={b} T={t} x{repeats}: latency_ms median="
+          f"{median * 1e3:.3f} min={min(latencies) * 1e3:.3f} "
+          f"max={max(latencies) * 1e3:.3f} tokens_per_s median="
+          f"{b * t / median:.1f} peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} "
+          f"launches_each={cfg.n_layers}")
+    return logits
+
+
+def compare_dense(llama, params, cfg, tokens, flash_logits, max_bound,
+                  mean_bound):
     """One request's logits through the kernel against the dense path."""
     dense = llama.forward(params, tokens, cfg, attn_fn=None)
     diff = (flash_logits - dense).abs()
     max_abs, mean_abs = diff.max().item(), diff.mean().item()
-    print(f"request B={tokens.shape[0]} T={tokens.shape[1]}: flash against "
-          f"dense logits max |diff| {max_abs:.4f} (bound {DENSE_MAX_ABS}), "
-          f"mean {mean_abs:.5f} (bound {DENSE_MEAN_ABS}), |logits| max "
-          f"{dense.abs().max().item():.3f}")
-    check(max_abs <= DENSE_MAX_ABS and mean_abs <= DENSE_MEAN_ABS,
+    print(f"request {str(cfg.dtype)[6:]} B={tokens.shape[0]} "
+          f"T={tokens.shape[1]}: flash against dense logits max |diff| "
+          f"{max_abs:.4g} (bound {max_bound}), mean {mean_abs:.4g} (bound "
+          f"{mean_bound}), |logits| max {dense.abs().max().item():.3f}")
+    check(max_abs <= max_bound and mean_abs <= mean_bound,
           "flash and dense logits differ beyond the bound")
 
 
@@ -725,7 +816,7 @@ def phase_train():
           f"AdamW lr {TRAIN_LR} fused={opt.param_groups[0]['fused']}, init "
           f"{time.perf_counter() - t0:.3f} s")
 
-    fa.launches = 0
+    zero_counts(fa.launches)
     torch.cuda.reset_peak_memory_stats()
     losses, seconds = [], []
     for _ in range(1 + TRAIN_STEPS):  # the first is the warm-up
@@ -735,7 +826,7 @@ def phase_train():
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         losses.append(loss.item())
-    launches = fa.launches
+    launches = sum(fa.launches.values())
     peak = torch.cuda.max_memory_allocated()
     timed = seconds[1:]
     median = statistics.median(timed)
@@ -1256,14 +1347,12 @@ def phase_model_parallel(card, dense_loss):
     with tempfile.TemporaryDirectory(prefix="mp-world-") as store:
         init_world(store, 0, 1, "cuda")
         try:
-            fa.launches = 0
-            for kernel in er.launches:
-                er.launches[kernel] = 0
+            zero_counts(fa.launches, er.launches)
             mp_dryrun()
             mp_sharded_train(card, dense_loss)
             mp_moe()
             mp_pipeline_and_attention()
-            launches = {"flash_attention": fa.launches, **er.launches}
+            launches = {**flash_counts(), **er.launches}
         finally:
             dist.destroy_process_group()
     check(not any(launches.values()),
@@ -1543,14 +1632,10 @@ def phase_device_fabric():
         for kind in ("all_reduce_sum", "all_gather") for r in counts
         for n in FABRIC_SIZES))
     torch.cuda.empty_cache()
-    fa.launches = 0
-    for table in (er.launches, dp.launches):
-        for kernel in table:
-            table[kernel] = 0
+    zero_counts(fa.launches, er.launches, dp.launches)
     t0 = time.perf_counter()
     expected = fabric_drive(inputs, counts)
-    launches = {"flash_attention": fa.launches, **er.launches,
-                **dp.launches}
+    launches = {**flash_counts(), **er.launches, **dp.launches}
     print(f"device fabric: main drive {time.perf_counter() - t0:.3f} s, "
           f"kernel launches {launches}")
     check(launches == {**{k: 0 for k in launches}, **expected},
@@ -1786,10 +1871,7 @@ def phase_press(table):
         # from each of its rows, so the replay is exact whatever order the
         # server applied the ops in.
         grads = np.full((PRESS_BATCH, PS_DIM), press.GRAD_VALUE, np.float32)
-        fa.launches = 0
-        for counts in (er.launches, dp.launches):
-            for kernel in counts:
-                counts[kernel] = 0
+        zero_counts(fa.launches, er.launches, dp.launches)
         for name, share, zipf_s in PRESS_SCENARIOS:
             sc = press.Scenario(
                 name=name, duration_s=PRESS_SECONDS, qps=share * capacity,
@@ -1824,8 +1906,7 @@ def phase_press(table):
                   f"p99={rep['p99_service_ms']} duration_s="
                   f"{rep['duration_s']} launches gather={gathers} "
                   f"scatter={scatters} wasted={wasted}")
-        launches = {"flash_attention": fa.launches, **er.launches,
-                    **dp.launches}
+        launches = {**flash_counts(), **er.launches, **dp.launches}
         check(not left_the_card.is_set() and server._dev_serving,
               "the shard left the card during the scenarios")
         check(server.table.tobytes() == replay.tobytes(),
@@ -1924,8 +2005,8 @@ def main() -> int:
     print(f"ps: seeded table drawn on the host in "
           f"{time.perf_counter() - t0:.3f} s")
     ps_rows = phase_ps_kernels(table)
-    phase_tiny()
-    launches = phase_serve()
+    tiny = phase_tiny()
+    served = phase_serve()
     phase_tiny_train()
     dense_loss = phase_train()
     ps_launches = phase_ps_serve(table)
@@ -1935,18 +2016,23 @@ def main() -> int:
     pressed = phase_press(table)
 
     b, t = REQUESTS[0]
-    row = rows[(b, t, torch.bfloat16, True)]
+    k1_paths = {"tiny": tiny, **served, "model_parallel": model_parallel,
+                "device_fabric": fabric, "press": pressed}
+    k1_main = {"flash_attention": ("serve", torch.bfloat16,
+                                   "wgmma+tma, split-p"),
+               "flash_attention_f32": ("serve_f32", torch.float32,
+                                       "mma.sync split-tf32 (3 products)"
+                                       "+tma")}
     source = "brpc_tpu_torch/csrc/embedding_rows.cu"
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
+    print(json.dumps({"kernels": [*({
+        "name": name, "route": "cuda",
         "source": "brpc_tpu_torch/csrc/flash_attention.cu",
         "replaces": "brpc_tpu/ops/flash_attention.py:71",
-        "design": "wgmma+tma, split-p", "launches": launches,
-        "launches_by_path": {"serve": launches, "model_parallel":
-                             model_parallel["flash_attention"],
-                             "device_fabric": fabric["flash_attention"],
-                             "press": pressed["flash_attention"]},
-        **row}, {
+        "design": design, "launches": served[path][name],
+        "launches_by_path": {p: counts[name]
+                             for p, counts in k1_paths.items()},
+        **rows[(b, t, dtype, True)]}
+        for name, (path, dtype, design) in k1_main.items()), {
         "name": "gather_rows", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:100",
         "design": "StableHLO device program, not Pallas; a block per id",

@@ -88,14 +88,44 @@ CASES = {
 }
 
 
+# The plain version's own cases (the CPU device client runs it for every
+# ApplyGrad): a few rows under thousands of duplicate ids, and values
+# planted at seeded places in the grads, and in the table's first row:
+# signed zeros and subnormals, then also infinities and NaNs.
+SIGNED_ZEROS_SUBNORMALS = np.array([0.0, -0.0, 1e-40, -1e-40, -3e-42, 1e-45],
+                                   np.float32)
+NON_FINITE = np.concatenate([SIGNED_ZEROS_SUBNORMALS,
+                             np.array([np.inf, -np.inf, np.nan, -np.nan],
+                                      np.float32)])
+PLAIN_CASES = {
+    "duplicates_k8192_rows3": (3, 64, lambda rng, rows: rng.integers(
+        0, rows, 8192), None),
+    "duplicates_k20000_rows2_dim1": (2, 1, lambda rng, rows: rng.integers(
+        0, rows, 20000), None),
+    "signed_zeros_subnormals": (8, 32, lambda rng, rows: rng.integers(
+        0, rows, 2048), SIGNED_ZEROS_SUBNORMALS),
+    "non_finite": (8, 32, lambda rng, rows: rng.integers(0, rows, 2048),
+                   NON_FINITE),
+}
+
+
 def _case(name):
-    rows, dim, make_ids = CASES[name]
-    rng = np.random.default_rng(sorted(CASES).index(name))
+    if name in PLAIN_CASES:
+        rows, dim, make_ids, plants = PLAIN_CASES[name]
+        seed = len(CASES) + sorted(PLAIN_CASES).index(name)
+    else:
+        (rows, dim, make_ids), plants = CASES[name], None
+        seed = sorted(CASES).index(name)
+    rng = np.random.default_rng(seed)
     table = rng.standard_normal((rows, dim)).astype(np.float32)
     ids = np.asarray(make_ids(rng, rows)).astype(np.int32)
     grads = rng.standard_normal((len(ids), dim)).astype(np.float32)
     if name == "padded_bucket":
         grads[3:] = 0
+    if plants is not None:
+        table[0, :len(plants)] = plants
+        at = rng.random(grads.shape) < 0.3
+        grads[at] = rng.choice(plants, int(at.sum()))
     return table, ids, grads
 
 
@@ -127,13 +157,26 @@ def test_cases_cover_the_design():
     assert (ids[3:] == 0).all() and not grads[3:].any()
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(PLAIN_CASES))
 def test_plain_scatter_sub_equals_subtract_at(name):
+    """Bit for bit. Where two NaNs meet (a NaN row less a NaN step) the
+    CPU keeps one of their payloads, and which one depends on the order of
+    the instruction's operands, which numpy and torch choose apart (the
+    loop of row subtractions this version replaced chose as torch does),
+    so a NaN is held as a NaN: the non-finite case compares every element
+    that ``np.subtract.at`` leaves a number bit for bit and the NaNs by
+    place."""
     table, ids, grads = _case(name)
     t = torch.from_numpy(table.copy())
-    got = er.scatter_sub(t, torch.from_numpy(ids), torch.from_numpy(grads),
-                         torch.tensor(np.float32(LR)))
-    assert got.numpy().tobytes() == _subtract_at(table, ids, grads).tobytes()
+    with np.errstate(invalid="ignore"):
+        got = er.scatter_sub(t, torch.from_numpy(ids),
+                             torch.from_numpy(grads),
+                             torch.tensor(np.float32(LR))).numpy()
+        want = _subtract_at(table, ids, grads)
+    nan = np.isnan(want)
+    assert nan.any() == (name == "non_finite")
+    assert np.array_equal(np.isnan(got), nan)
+    assert got[~nan].tobytes() == want[~nan].tobytes()
     assert t.numpy().tobytes() == table.tobytes()  # never in place
 
 

@@ -81,7 +81,7 @@ def test_gqa_groups(hq, hkv):
 
 def test_cpu_runs_plain_version_without_launch():
     q, k, v = (torch.from_numpy(a) for a in _inputs(4, t=64))
-    before = fa.launches
+    before = dict(fa.launches)
     got = fa.flash_attention(q, k, v, block_q=32, block_k=32)
     want = fa.flash_attention_reference(q, k, v, block_q=32, block_k=32)
     assert torch.equal(got, want)
@@ -144,7 +144,7 @@ def _bad(change):
     return change(q, k, v)
 
 
-@pytest.mark.parametrize("case,args,exc", [
+_REJECTED = [
     ("t not divisible", lambda q, k, v: (q[:, :48].contiguous(),
                                          k[:, :48].contiguous(),
                                          v[:, :48].contiguous()), ValueError),
@@ -160,7 +160,10 @@ def _bad(change):
     ("seq mismatch", lambda q, k, v: (q, k[:, :32].contiguous(),
                                       v[:, :32].contiguous()), ValueError),
     ("three dims", lambda q, k, v: (q[0], k[0], v[0]), ValueError),
-])
+]
+
+
+@pytest.mark.parametrize("case,args,exc", _REJECTED)
 def test_rejects(case, args, exc):
     q, k, v = _bad(args)
     with pytest.raises(exc):
@@ -264,6 +267,87 @@ def test_split_probabilities_meet_the_kernel_bound(causal):
     assert _of_bf16_step(once, want) > 1.0
 
 
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest, ties
+    away from zero, 10 mantissa bits (13 low bits of the f32 cleared), on
+    the int32 view."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_product(a, b, split):
+    """a @ b on the tensor cores: each operand split into hi = tf32(x) and
+    lo = tf32(x - hi) and the product taken as lo·hi + hi·lo + hi·hi in
+    f32, or each operand rounded to TF32 once."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if not split:
+        return a_hi @ b_hi
+    return _tf32(a - a_hi) @ b_hi + a_hi @ _tf32(b - b_hi) + a_hi @ b_hi
+
+
+def _f32_kernel_arithmetic(q, k, v, *, causal, split=True, block_k=64):
+    """The f32 kernel's arithmetic in plain PyTorch: q scaled by D**-0.5 in
+    f32, S = Q K^T and O += P V as TF32 products (``_tf32_product``),
+    masked scores -1e30, an online softmax over K tiles of ``block_k`` with
+    p = 2**(s·log2(e) - m·log2(e)), and acc / max(l, 1e-20)."""
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    log2e = 1.4426950408889634
+    qf = (q * d ** -0.5).view(b, t, hkv, hq // hkv, d).permute(0, 2, 3, 1, 4)
+    kf = k.permute(0, 2, 1, 3).unsqueeze(2)
+    vf = v.permute(0, 2, 1, 3).unsqueeze(2)
+    rows = torch.arange(t)[:, None]
+    m = torch.full((b, hkv, hq // hkv, t, 1), -torch.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, t, block_k):
+        kt = kf[..., k0:k0 + block_k, :].transpose(-1, -2)
+        s = _tf32_product(qf, kt, split)
+        if causal:
+            cols = torch.arange(k0, min(k0 + block_k, t))[None, :]
+            s = torch.where(cols <= rows, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * log2e)
+        p = torch.exp2(s * log2e - m_new * log2e)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _tf32_product(p, vf[..., k0:k0 + block_k, :],
+                                          split)
+        m = m_new
+    out = acc / l.clamp_min(1e-20)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq * d)
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """Nearest with ties away from zero, at 10 mantissa bits, signs alike."""
+    one = 1.0
+    x = torch.tensor([one + 2 ** -11, one + 3 * 2 ** -11, one + 2 ** -12,
+                      one + 2 ** -11 + 2 ** -20, -(one + 2 ** -11), 0.0,
+                      -0.0], dtype=torch.float32)
+    want = torch.tensor([one + 2 ** -10, one + 2 ** -9, one,
+                         one + 2 ** -10, -(one + 2 ** -10), 0.0, -0.0],
+                        dtype=torch.float32)
+    got = _tf32(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_tf32_products_meet_the_f32_bound(causal):
+    """At Llama-3-8B's head dim and the serving length (two query heads on
+    one kv head), the f32 kernel's split-TF32 arithmetic stays within the
+    f32 gate, 2e-5 of the plain version per element; one TF32 product of
+    each operand misses it, which is why the kernel splits them."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2048, h, 128),
+                                                    dtype=np.float32))
+               for h in (2, 1, 1))
+    want = fa.flash_attention_reference(q, k, v, causal=causal)
+    split = _f32_kernel_arithmetic(q, k, v, causal=causal)
+    assert split.shape == want.shape
+    assert (split - want).abs().max() <= 2e-5
+    once = _f32_kernel_arithmetic(q, k, v, causal=causal, split=False)
+    assert (once - want).abs().max() > 2e-5
+
+
 def test_value_error_contract_matches_reference():
     arrays = _inputs(6, t=48)
     with pytest.raises(ValueError):
@@ -281,10 +365,13 @@ def cuda_device():
 
 # (B, T, Hq, Hkv, D): the tiny config's heads, Llama-3-8B's, a T that is not
 # a multiple of the kernels' 64-row tiles, a T < 64 that is not a multiple
-# of 16, a T that is a multiple of 128 but not of 256, and group 4 at D=64.
+# of 16, a T that is a multiple of 128 but not of 256, group 4 at D=64, a
+# ragged T at D=32 (neither a multiple of 8 nor of the 64-row tiles), and
+# Hq = Hkv at D=64 over several 128-row query tiles.
 _CARD_SHAPES = [(2, 128, 4, 2, 32), (1, 2048, 32, 8, 128),
                 (4, 512, 32, 8, 128), (2, 96, 8, 8, 64), (2, 40, 4, 1, 128),
-                (1, 384, 32, 8, 128), (3, 640, 8, 2, 64)]
+                (1, 384, 32, 8, 128), (3, 640, 8, 2, 64), (3, 77, 4, 2, 32),
+                (2, 512, 8, 8, 64)]
 
 
 @pytest.mark.cuda
@@ -301,10 +388,11 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype, causal):
     g = torch.Generator(device=cuda_device).manual_seed(7)
     q, k, v = (torch.randn((b, t, h, d), generator=g, device=cuda_device)
                .to(dtype) for h in (hq, hkv, hkv))
-    before = fa.launches
+    kernel = fa._KERNELS[dtype]
+    before = dict(fa.launches)
     got = fa.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    assert fa.launches == {**before, kernel: before[kernel] + 1}
     want = fa.flash_attention_reference(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == (b, t, hq * d)
     err = (got.float() - want.float()).abs()
@@ -325,12 +413,34 @@ def test_kernel_is_forward_only_on_card(cuda_device, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(8)
     q, k, v = (torch.randn((1, 256, h, 128), generator=g, device=cuda_device)
                .to(dtype).requires_grad_(True) for h in (32, 8, 8))
-    before = fa.launches
+    kernel = fa._KERNELS[dtype]
+    before = dict(fa.launches)
     out = fa.flash_attention(q, k, v)
-    assert fa.launches == before + 1 and out.grad_fn is not None
+    assert fa.launches == {**before, kernel: before[kernel] + 1}
+    assert out.grad_fn is not None
     with torch.no_grad():
         want = fa.flash_attention(q, k, v)
     assert torch.equal(out.detach(), want)
     with pytest.raises(RuntimeError, match="forward only"):
         out.float().sum().backward()
     assert q.grad is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,args,exc", _REJECTED)
+def test_f32_kernel_launches_once_and_refuses_on_card(cuda_device, case,
+                                                      args, exc):
+    """On the card an f32 call launches the f32 kernel once and nothing
+    else; what ``test_rejects`` refuses on the CPU is refused on the card
+    before any launch."""
+    q, k, v = (t.to(cuda_device) for t in _bad(lambda q, k, v: (q, k, v)))
+    before = dict(fa.launches)
+    got = fa.flash_attention(q, k, v, block_q=32, block_k=32)
+    torch.cuda.synchronize()
+    assert fa.launches == {**before, "f32": before["f32"] + 1}
+    want = fa.flash_attention_reference(q, k, v, block_q=32, block_k=32)
+    assert (got - want).abs().max().item() <= 2e-5
+    bad = [t.to(cuda_device) for t in _bad(args)]
+    with pytest.raises(exc):
+        fa.flash_attention(*bad, block_q=32, block_k=32)
+    assert fa.launches == {**before, "f32": before["f32"] + 1}

@@ -3,7 +3,8 @@
 A fresh interpreter imports every module of ``brpc_tpu_torch`` and
 ``chip_smoke`` and then finds neither package in ``sys.modules``; an AST
 scan finds no import of either in the sources, the port's measurement
-scripts (``fabric_routes.py``, ``tp_scaling.py``) included. The port's
+scripts (``fabric_routes.py``, ``tp_scaling.py``, ``f32_dense_gap.py``)
+included. The port's
 command-line tools (the linter, the fuzzer, the press harness), each run
 in a fresh interpreter, load neither package.
 """
@@ -18,7 +19,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 _SOURCES = sorted((ROOT / "brpc_tpu_torch").rglob("*.py")) + [
     ROOT / name for name in ("chip_smoke.py", "fabric_routes.py",
-                             "tp_scaling.py")]
+                             "tp_scaling.py", "f32_dense_gap.py")]
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys

@@ -336,3 +336,95 @@ def test_run_press_against_device_shard_matches_host_replay():
     finally:
         srv.close()
         dev.close()
+
+
+# F5: press's mixed open-loop load into both packages' device shards on
+# their CPU clients (the reference's on its test PJRT plugin, built from
+# cpp/ as tests/test_torch_device_programs.py builds it): 400 qps, one op in
+# ten an ApplyGrad of 256 ids, a 16384 x 512 table and a 2 s deadline an
+# op. Before the repair the port's shard served 83-128 of 763 ops (the
+# rest timed out) where the reference's served all.
+F5_SCENARIO = dict(duration_s=2.0, qps=400, batch=256, read_fraction=0.9,
+                   seed=11)
+F5_VOCAB, F5_DIM, F5_LR, F5_DEADLINE_MS = 16384, 512, 0.05, 2000
+
+
+@pytest.fixture(scope="module")
+def fake_pjrt(tmp_path_factory):
+    """The reference's test plugin, built from ``cpp/`` into a temp dir."""
+    out = tmp_path_factory.mktemp("fake_pjrt") / "libbrt_fake_pjrt.so"
+    subprocess.run(["g++", "-std=c++20", "-O2", "-fPIC", "-shared",
+                    "-I", os.path.join(ROOT, "cpp"),
+                    os.path.join(ROOT, "cpp", "device",
+                                 "fake_pjrt_plugin.cc"),
+                    "-o", str(out)], check=True, capture_output=True,
+                   timeout=300)
+    return str(out)
+
+
+def _press_device_shard(press_mod, obs_mod, server_cls, client):
+    """Drives F5's load into a device shard on ``client``; returns press's
+    report, the shard's wasted launches, and whether its final table
+    equals a host replay of every apply bit for bit."""
+    srv = server_cls(F5_VOCAB, F5_DIM, 0, 1, lr=F5_LR, seed=3,
+                     device_client=client)
+    try:
+        replay = srv.table.copy()
+        ops = press_mod.build_ops(press_mod.Scenario(**F5_SCENARIO),
+                                  F5_VOCAB)
+        applies = [op for op in ops if op.op == press_mod.OP_APPLY]
+        wasted = obs_mod.counter("ps_device_wasted_launches")
+        wasted_before, installs_before = wasted.get_value(), srv._install_gen
+        rep = press_mod.run_press(srv.address, ops, F5_DIM,
+                                  deadline_ms=F5_DEADLINE_MS)
+        # An apply whose caller timed out still lands on the shard.
+        settle = time.monotonic() + 30.0
+        while srv._install_gen - installs_before < len(applies) \
+                and time.monotonic() < settle:
+            time.sleep(0.05)
+        for op in applies:
+            np.subtract.at(replay, op.ids,
+                           F5_LR * np.full((op.ids.size, F5_DIM),
+                                           press_mod.GRAD_VALUE,
+                                           np.float32))
+        exact = srv.table.tobytes() == replay.tobytes()
+        return rep, wasted.get_value() - wasted_before, exact
+    finally:
+        srv.close()
+
+
+@pytest.mark.needs_native
+def test_device_shard_serves_mixed_load_as_reference_does(
+        fake_pjrt, monkeypatch, record_property):
+    """The port's shard serves every op of F5's load wherever the
+    reference's does, and its table ends bit-equal to a host replay."""
+    from brpc_tpu import obs as ref_obs
+    from brpc_tpu import rpc as ref_rpc
+    from brpc_tpu.ps_remote import DevicePsShardServer as RefShard
+    from brpc_tpu_torch import obs
+    from brpc_tpu_torch.device import DeviceClient
+    from brpc_tpu_torch.ps_remote import DevicePsShardServer
+
+    monkeypatch.setenv("BRT_FAKE_PJRT_DEVICES", "1")
+    ref_client = ref_rpc.DeviceClient(fake_pjrt)
+    try:
+        ref_rep, ref_wasted, ref_exact = _press_device_shard(
+            ref_press, ref_obs, RefShard, ref_client)
+    finally:
+        ref_client.close()
+    client = DeviceClient("cpu")
+    try:
+        rep, wasted, exact = _press_device_shard(press, obs,
+                                                 DevicePsShardServer, client)
+    finally:
+        client.close()
+    for side, r, w in (("reference", ref_rep, ref_wasted),
+                       ("port", rep, wasted)):
+        record_property(f"{side}_ok", f"{r['ok']} of {r['n']}")
+        record_property(f"{side}_wasted_launches", w)
+        print(f"F5 {side}: {r['ok']} of {r['n']} ok, errors {r['errors']}, "
+              f"goodput {r['goodput_qps']:.1f} qps, {w} wasted launches")
+    assert ref_exact and ref_rep["n"] == rep["n"]
+    if ref_rep["ok"] == ref_rep["n"]:
+        assert rep["ok"] == rep["n"], (rep["ok"], rep["errors"])
+    assert exact
