@@ -127,11 +127,39 @@ is fatal when it fails:
    table must equal a host replay bit for bit, and no device buffer may be
    live after close. It prints the capacity, offered and goodput qps,
    availability, sojourn and service p50/p99 and the peak memory.
+13. the device shard's fault-tolerance tier on card 0, with every kernel
+   count at 0 before and read after, each step against a host replay of
+   the same seeded table (``np.subtract.at`` in the order sent) bit for
+   bit, every op required to succeed: (a) a replicated pair of shard 0 of
+   ``RECOVER_SHARDS`` (the most rows a 64 MiB ``Sync`` frame carries at
+   this width) on one client, the primary killed under a closed loop of
+   Lookup/ApplyGrad pairs for ``RECOVER_FAILOVER_S``: the backup promoted
+   with its mirror staged on the card, the revived ex-primary fenced and
+   mirrored down; it prints the Sync's bytes and time, kill to the first
+   ApplyGrad acked by the new primary, the promotion's staging and the
+   mirror-down (the writes of the replicated and migrating steps carry
+   ``RECOVER_STREAM_K`` ids, the most a streamed delta frame holds at this
+   width); (b) a fenced stale primary: its writes refused (EFENCED,
+   then ENOTPRIMARY), the new primary's table untouched, the stale
+   replica's mirror overwritten by the new primary's Sync once the
+   partition heals; (c) a cold restart of the whole table, held as the
+   ``RECOVER_SHARDS`` shards (a checkpoint base is under the same cap),
+   each with its ``CheckpointStore``: ``RECOVER_APPLIES`` ApplyGrads, a
+   snapshot of every shard, as many again, then fresh servers attached to
+   the stores at once serving the replay of all of them, with the
+   snapshot's and the recovery's times and the delta logs' bytes; (d) a
+   live 1 -> 2 split of the shard with ``reshard.MigrationDriver`` under
+   ApplyGrads, one destination's handoff severed for three attempts: both
+   destinations on the card and bit-equal after cutover, with the copy's
+   time and the whole-table fetches of the range snapshots. After each
+   step every server and client is closed, the card's allocated memory is
+   back to its value before the phase and the handle ledger holds no
+   device buffer.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``), phases 10 ("model_parallel"), 11
-("device_fabric") and 12 ("press") included; K1 has one entry a kernel,
-bf16 ("flash_attention", main path "serve") and f32
+("device_fabric"), 12 ("press") and 13 ("ps_recover") included; K1 has
+one entry a kernel, bf16 ("flash_attention", main path "serve") and f32
 ("flash_attention_f32", main path "serve_f32"), each with the tiny
 phase's launches ("tiny").
 
@@ -144,11 +172,13 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import json
 import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -267,6 +297,35 @@ PRESS_BATCH, PRESS_READ_FRACTION = 256, 0.9
 PRESS_SECONDS, PRESS_SEED = 2.5, 11
 PRESS_CALIBRATE_THREADS, PRESS_CALIBRATE_S = 4, 0.6
 PRESS_SCENARIOS = (("steady", 0.40, 0.0), ("zipf_hot", 0.45, 1.2))
+
+# The HBM shard's fault-tolerance tier. Replication ships the whole table
+# in one Sync frame, and the native protocol refuses a body over 64 MiB
+# (FLAGS_max_body_size, cpp/rpc/protocol_brt.cc:26): at width 4096 a
+# replicated shard holds at most 4096 rows. Llama-3-8B's table cut into 32
+# shards gives 4008 rows a shard (65.7 MB), so the replicated pair, the
+# fenced primary and the live split run shard 0 of 32. Shard 0's base is
+# row 0 and its seeded draw is the first 4008 rows of the whole table's, so
+# its servers and clients address it as a table of 4008 rows. A
+# checkpoint base is held to the same cap: restore reads a base's float
+# count through the wire's count guard (wire.MAX_WIRE_COUNT, 2**24 floats;
+# durable._unpack_snapshot, both packages), and a larger base is skipped
+# as corrupt. So the cold restart runs the whole table as the 32 shards,
+# each with its own store.
+RECOVER_SHARDS = 32
+RECOVER_ROWS = PS_VOCAB // RECOVER_SHARDS
+SYNC_BODY_LIMIT = 64 << 20
+# A write's delta frame (its ids and rows, with a writer window of a few
+# bytes) streams to the backups and to a split's destinations through the
+# native stream's 2 MiB window, which a larger frame never enters
+# (StreamWrite, cpp/rpc/stream.cc:294; both packages): the write's ack then
+# times out. So the writes of the replicated and migrating steps carry at
+# most 127 ids at width 4096; the Lookups carry PS_K.
+STREAM_WINDOW = 2 << 20
+RECOVER_STREAM_K = (STREAM_WINDOW - 1024) // (4 + 4 * PS_DIM)
+RECOVER_WARMUP = 2  # Lookup/ApplyGrad pairs before the kill
+RECOVER_FAILOVER_S = 2.0  # the closed loop with the primary dead
+RECOVER_APPLIES = 4  # ApplyGrads before the snapshot, and after it
+RECOVER_SPLIT_APPLIES = 3  # ApplyGrads while the split copies
 
 class SmokeFailure(RuntimeError):
     pass
@@ -1958,7 +2017,535 @@ def press_capacity(addr):
     return sum(counts) / PRESS_CALIBRATE_S
 
 
-def fabric_line(fabric_rows, fabric_launches, press_launches):
+def phase_ps_recover(table):
+    """Phase 13; returns every kernel's launches over its four steps."""
+    from brpc_tpu_torch import obs
+    from brpc_tpu_torch.analysis import handles
+    from brpc_tpu_torch.ops import device_programs as dp
+    from brpc_tpu_torch.ops import embedding_rows as er
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    check(obs.enabled(), "obs is off: promotions would go uncounted")
+    sync_bytes = RECOVER_ROWS * PS_DIM * 4 + 24
+    check(sync_bytes < SYNC_BODY_LIMIT,
+          f"a Sync of {sync_bytes} bytes is over the {SYNC_BODY_LIMIT}-byte "
+          f"body limit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated(0)
+    phase_t0 = time.perf_counter()
+    handles.set_enabled(True)
+    zero_counts(fa.launches, er.launches, dp.launches)
+    shard = table[:RECOVER_ROWS]
+    print(f"ps recover: shard 0 of {RECOVER_SHARDS} of {PS_VOCAB}x{PS_DIM} "
+          f"f32 ({RECOVER_ROWS} rows, {shard.nbytes} B; a Sync frame of "
+          f"{sync_bytes} B under the {SYNC_BODY_LIMIT} B limit), k={PS_K} "
+          f"Zipf({PS_ZIPF}) ids, lr {PS_LR}; device memory before "
+          f"{start} B")
+    try:
+        for name, step, arg in (("failover", recover_failover, shard),
+                                ("fenced primary", recover_fenced, shard),
+                                ("cold restart", recover_cold_restart,
+                                 table),
+                                ("live split", recover_split, shard)):
+            step(arg)
+            gc.collect()
+            now = torch.cuda.memory_allocated(0)
+            live = handles.live("device_buffer")
+            check(now == start, f"ps recover {name}: device memory {now} B "
+                                f"after the step, {start} B before")
+            check(not live, f"ps recover {name}: {len(live)} device buffers "
+                            f"live in the handle ledger")
+            print(f"ps recover {name}: every server and client closed, "
+                  f"device memory back to {now} B, no device buffer in the "
+                  f"handle ledger")
+    finally:
+        handles.set_enabled(None)
+    launches = {**flash_counts(), **er.launches, **dp.launches}
+    check(launches["gather_rows"] > 0 and launches["scatter_sub"] > 0
+          and not any(n for k, n in launches.items()
+                      if k not in ("gather_rows", "scatter_sub")),
+          f"ps recover launches {launches}")
+    print(f"ps recover: four steps passed in "
+          f"{time.perf_counter() - phase_t0:.3f} s, kernel launches "
+          f"{launches}, peak_mem_gb="
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
+    return launches
+
+
+def time_calls(obj, name, spent):
+    """Wraps method ``name`` on the instance ``obj``: each call appends its
+    host seconds to ``spent``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t0)
+
+    setattr(obj, name, timed)
+
+
+class ShardTraffic:
+    """Zipf ids over a permutation of ``rows`` and a few seeded gradient
+    blocks, Lookups checked against a host replay bit for bit and
+    ApplyGrads replayed with ``np.subtract.at`` in the order sent."""
+
+    def __init__(self, replay, seed, apply_k=PS_K):
+        self.replay = replay
+        rows = len(replay)
+        self.rng = np.random.default_rng(seed)
+        self.perm = self.rng.permutation(rows)
+        self.grads = [self.rng.standard_normal((apply_k, PS_DIM)).astype(
+            np.float32) for _ in range(3)]
+        self.applies = 0
+
+    def ids(self, k=PS_K):
+        rows = len(self.replay)
+        return self.perm[(self.rng.zipf(PS_ZIPF, k) - 1) % rows].astype(
+            np.int32)
+
+    def lookup(self, emb, what):
+        ids = self.ids()
+        check(emb.lookup(ids).tobytes() == self.replay[ids].tobytes(),
+              f"{what}: a Lookup differs from the host replay")
+
+    def apply(self, emb):
+        grads = self.grads[self.applies % len(self.grads)]
+        ids = self.ids(len(grads))
+        emb.apply_gradients(ids, grads)
+        np.subtract.at(self.replay, ids, PS_LR * grads)
+        self.applies += 1
+
+
+def recover_server(dev, **kw):
+    from brpc_tpu_torch.ps_remote import DevicePsShardServer
+
+    kw.setdefault("shard_index", 0)
+    kw.setdefault("num_shards", 1)
+    return DevicePsShardServer(kw.pop("vocab", RECOVER_ROWS), PS_DIM,
+                               lr=PS_LR, seed=PS_SEED, device_client=dev,
+                               **kw)
+
+
+def recover_pair(dev, what):
+    """Two replicas of shard 0 of ``RECOVER_SHARDS`` on one client, replica
+    0 the primary serving from the card, replica 1 a backup on its host
+    mirror; returns them, their replica set and the Sync's bytes and
+    seconds (the primary's snapshot fetch, and configuring until the delta
+    stream to the backup is up)."""
+    from brpc_tpu_torch.naming import ReplicaSet
+
+    servers = [recover_server(dev) for _ in range(2)]
+    synced = []
+    snapshot = servers[0]._replication_snapshot
+
+    def timed_snapshot():
+        t0 = time.perf_counter()
+        out = snapshot()
+        synced.append((len(out[2]), time.perf_counter() - t0))
+        return out
+
+    servers[0]._replication_snapshot = timed_snapshot
+    rs = ReplicaSet(tuple(sv.address for sv in servers), primary=0)
+    t0 = time.perf_counter()
+    for r, sv in enumerate(servers):
+        sv.configure_replication(rs, r)
+    wait_delta_streams(servers[0], what)
+    sync_s = time.perf_counter() - t0
+    check(len(synced) == 1 and servers[0]._dev_serving
+          and not servers[1]._dev_serving,
+          f"{what}: {len(synced)} Syncs, primary on the card "
+          f"{servers[0]._dev_serving}, backup {servers[1]._dev_serving}")
+    return servers, rs, (*synced[0], sync_s)
+
+
+def wait_for(cond, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline and not cond():
+        time.sleep(0.01)
+    check(cond(), f"{what} within {timeout_s} s")
+
+
+def wait_delta_streams(primary, what, timeout_s=60.0):
+    """Until the primary's delta stream to every backup is up: a pair acks
+    a write without a backup whose stream is not up yet."""
+    wait_for(lambda: all(p.stream is not None and not p.need_sync
+                         for p in primary._replicator._peers), timeout_s,
+             f"{what}: the delta stream to every backup is up")
+
+
+def close_device_client(dev, what):
+    live = dev.live()
+    dev.close()
+    check(not live, f"{what}: device buffers live after close: {live}")
+
+
+def recover_failover(shard):
+    """Step 1: the primary killed under a closed loop of Lookup/ApplyGrad
+    pairs; every op succeeds, the backup is promoted onto the card, the
+    revived ex-primary is fenced and mirrored down."""
+    from brpc_tpu_torch import fault, obs, resilience
+    from brpc_tpu_torch.device import DeviceClient
+    from brpc_tpu_torch.ps_remote import RemoteEmbedding
+
+    traffic = ShardTraffic(shard.copy(), PS_SEED + 20,
+                           apply_k=RECOVER_STREAM_K)
+    stages0 = obs.counter("ps_device_promote_stages").get_value()
+    mirrors0 = obs.counter("ps_device_mirror_downs").get_value()
+    failovers0 = obs.counter("ps_client_failovers").get_value()
+    dev = DeviceClient()
+    servers, rs, (sync_bytes, fetch_s, sync_s) = recover_pair(
+        dev, "failover")
+    staging, mirror_down = [], []
+    time_calls(servers[1], "_stage_up_locked", staging)
+    time_calls(servers[0], "_mirror_down", mirror_down)
+    emb = RemoteEmbedding(
+        [rs], RECOVER_ROWS, PS_DIM, timeout_ms=10000,
+        retry=recover_retry(),
+        breakers=resilience.BreakerRegistry(
+            resilience.BreakerOptions(short_window=4, min_samples=2,
+                                      min_isolation_ms=50),
+            redirect=True),
+        health_check=True, health_interval_ms=20)
+    prim = servers[0].address
+    try:
+        check(servers[0].table.tobytes() == shard.tobytes(),
+              "failover: the seeded shard differs from phase 8's table's "
+              "first rows")
+        for _ in range(RECOVER_WARMUP):
+            traffic.lookup(emb, "failover warm-up")
+            traffic.apply(emb)
+        fault.install(fault.FaultPlan(fault.kill_rules(prim), seed=3))
+        t_kill = time.perf_counter()
+        first_ack = None
+        pairs = 0
+        while time.perf_counter() < t_kill + RECOVER_FAILOVER_S:
+            traffic.lookup(emb, "failover")
+            traffic.apply(emb)
+            pairs += 1
+            if first_ack is None:
+                first_ack = time.perf_counter() - t_kill
+        check(servers[1].is_primary and servers[1].epoch >= 1
+              and servers[1]._dev_serving,
+              "failover: the backup was not promoted onto the card")
+        check(obs.counter("ps_device_promote_stages").get_value()
+              == stages0 + 1 and len(staging) == 1,
+              f"failover: {len(staging)} stagings at promotion")
+        check(obs.counter("ps_client_failovers").get_value() > failovers0,
+              "failover: the client counted no failover")
+        fault.clear()
+        wait_for(lambda: not emb._isolated(prim), 10.0,
+                 "failover: the prober revives the killed primary")
+        traffic.apply(emb)  # its propagation fences the ex-primary
+        wait_for(lambda: not servers[0].is_primary
+                 and not servers[0]._dev_serving
+                 and obs.counter("ps_device_mirror_downs").get_value()
+                 > mirrors0, 10.0,
+                 "failover: the revived ex-primary is fenced and mirrored "
+                 "down")
+        # Reads go to any live replica: the ex-primary serves the replay
+        # once the new primary's Sync and stream have caught it up (a
+        # write is acked without a backup whose stream is not up yet).
+        wait_delta_streams(servers[1], "failover, the ex-primary's resync")
+        servers[1].flush_replication(timeout_s=60.0)
+        differ = [r for r, sv in enumerate(servers)
+                  if sv.table.tobytes() != traffic.replay.tobytes()]
+        check(not differ, f"failover: replicas {differ} differ from the "
+                          f"replay (gens {[sv._install_gen for sv in servers]}"
+                          f", {traffic.applies} ApplyGrads)")
+        traffic.lookup(emb, "failover, after the resync")
+        print(f"ps recover failover: Sync {sync_bytes} B in "
+              f"{sync_s * 1e3:.3f} ms (its snapshot fetch "
+              f"{fetch_s * 1e3:.3f} ms); killed the primary under "
+              f"{pairs} Lookup/ApplyGrad pairs in "
+              f"{RECOVER_FAILOVER_S} s, every op ok and bit-equal; "
+              f"kill_to_first_ack_ms={first_ack * 1e3:.3f} "
+              f"promotion_staging_ms={staging[0] * 1e3:.3f} "
+              f"mirror_down_ms={max(mirror_down) * 1e3:.3f} "
+              f"({len(mirror_down)} calls); new primary epoch "
+              f"{servers[1].epoch} on the card, the ex-primary fenced and "
+              f"on its host mirror")
+    finally:
+        fault.clear()
+        emb.close()
+        for sv in servers:
+            sv.close()
+    close_device_client(dev, "failover")
+
+
+def recover_retry():
+    from brpc_tpu_torch import resilience
+
+    return resilience.RetryPolicy(
+        max_attempts=4, backoff=resilience.Backoff(base_ms=1, max_ms=10),
+        attempt_timeout_ms=5000)
+
+
+def recover_fenced(shard):
+    """Step 2: an out-of-band promotion the card-serving primary never
+    heard of; its next write is refused (EFENCED, then ENOTPRIMARY) and
+    never reaches the new primary; it demotes itself onto its host mirror,
+    which the new primary's Sync overwrites once the partition heals."""
+    from brpc_tpu_torch import fault, obs, resilience, rpc
+    from brpc_tpu_torch.device import DeviceClient
+    from brpc_tpu_torch.ps_remote import _pack_apply_req
+
+    traffic = ShardTraffic(shard.copy(), PS_SEED + 21,
+                           apply_k=RECOVER_STREAM_K)
+    mirrors0 = obs.counter("ps_device_mirror_downs").get_value()
+    fenced0 = obs.counter("ps_replica_fenced").get_value()
+    dev = DeviceClient()
+    servers, _, _ = recover_pair(dev, "fenced primary")
+    old, new = servers
+    try:
+        fault.install(fault.FaultPlan([
+            fault.FaultRule(action="error", side="server", service="Ps",
+                            method=method, endpoint=old.address,
+                            error_code=1009)
+            for method in ("Sync", "ReplicaApply")], seed=1))
+        ch = rpc.Channel(new.address, timeout_ms=30000)
+        try:
+            t0 = time.perf_counter()
+            ch.call("Ps", "Promote", struct.pack("<q", 1))
+            promote_s = time.perf_counter() - t0
+        finally:
+            ch.close()
+        check(new.is_primary and new.epoch == 1 and new._dev_serving
+              and old.is_primary and old._dev_serving,
+              "fenced primary: the promotion or the stale primary's state")
+        ids = traffic.ids(RECOVER_STREAM_K)
+        body = bytes(_pack_apply_req(ids, traffic.grads[0]))
+        ch = rpc.Channel(old.address, timeout_ms=30000)
+        codes = []
+        try:
+            for _ in range(2):
+                try:
+                    ch.call("Ps", "ApplyGrad", body)
+                    codes.append(0)
+                except rpc.RpcError as e:
+                    codes.append(e.code)
+        finally:
+            ch.close()
+        check(codes == [resilience.EFENCED, resilience.ENOTPRIMARY],
+              f"fenced primary: the stale writes got {codes}")
+        wait_for(lambda: not old.is_primary and not old._dev_serving
+                 and obs.counter("ps_device_mirror_downs").get_value()
+                 > mirrors0, 10.0,
+                 "fenced primary: the stale primary mirrored down")
+        check(obs.counter("ps_replica_fenced").get_value() > fenced0,
+              "fenced primary: no fence counted")
+        check(new.table.tobytes() == traffic.replay.tobytes(),
+              "fenced primary: the refused write reached the new primary")
+        held = old.table.tobytes() != traffic.replay.tobytes()
+        fault.clear()
+        wait_for(lambda: old.table.tobytes() == traffic.replay.tobytes(),
+                 30.0, "fenced primary: the new primary's Sync overwrote "
+                       "the stale replica's mirror")
+        print(f"ps recover fenced primary: Promote in "
+              f"{promote_s * 1e3:.3f} ms (staging the backup's mirror); "
+              f"the stale primary's writes refused with {codes}, the new "
+              f"primary's table bit-equal to the replay; the stale "
+              f"replica's mirror "
+              + ("held the refused write until" if held else "matched "
+                 "the replay before")
+              + " the new primary's Sync once the partition healed")
+    finally:
+        fault.clear()
+        for sv in servers:
+            sv.close()
+    close_device_client(dev, "fenced primary")
+
+
+def seeded_shards():
+    """The whole table as ``RECOVER_SHARDS`` servers draw it: shard s from
+    seed ``PS_SEED + s``, ``RECOVER_ROWS`` rows, as ``PsShardServer``
+    draws it."""
+    return np.concatenate([
+        (np.random.default_rng(PS_SEED + s).standard_normal(
+            (RECOVER_ROWS, PS_DIM)) * 0.02).astype(np.float32)
+        for s in range(RECOVER_SHARDS)])
+
+
+def recover_cold_restart(table):
+    """Step 3: the whole table as ``RECOVER_SHARDS`` device shards, each
+    with its checkpoint store; four ApplyGrads, a snapshot of every shard,
+    four more; every server closed, and as many fresh ones, attached to
+    the stores at once as restarted shard processes would be, serve the
+    replay of all eight. ``table`` is phase 8's one-shard draw: a base of
+    it could not be restored (module constants)."""
+    from brpc_tpu_torch.device import DeviceClient
+    from brpc_tpu_torch.durable import CheckpointStore
+    from brpc_tpu_torch.ps_remote import RemoteEmbedding
+
+    t0 = time.perf_counter()
+    traffic = ShardTraffic(seeded_shards(), PS_SEED + 22)
+    draw_s = time.perf_counter() - t0
+    check(traffic.replay.nbytes == table.nbytes,
+          "cold restart: the shards do not make the whole table")
+    dev = DeviceClient()
+    shards = range(RECOVER_SHARDS)
+
+    def start():
+        servers = [recover_server(dev, vocab=PS_VOCAB, shard_index=s,
+                                  num_shards=RECOVER_SHARDS)
+                   for s in shards]
+        return servers, RemoteEmbedding([sv.address for sv in servers],
+                                        PS_VOCAB, PS_DIM, timeout_ms=600000)
+
+    def close(servers, emb, stores):
+        emb.close()
+        for sv in servers:
+            sv.close()
+        for store in stores:
+            store.close()
+
+    with tempfile.TemporaryDirectory() as root:
+        dirs = [os.path.join(root, f"shard{s}") for s in shards]
+        # No compaction by size: the one snapshot is the one below.
+        stores = [CheckpointStore(d, compact_bytes=1 << 62) for d in dirs]
+        servers, emb = start()
+        try:
+            t0 = time.perf_counter()
+            for sv, store in zip(servers, stores):
+                check(sv.attach_checkpoint(store) is None
+                      and sv._dev_serving,
+                      "cold restart: a fresh store recovered something")
+            attach_s = time.perf_counter() - t0
+            for n in range(2 * RECOVER_APPLIES):
+                if n == RECOVER_APPLIES:
+                    # Each shard's own device re-base, as a compaction
+                    # runs it: pin, fetch, write the base.
+                    t0 = time.perf_counter()
+                    for sv in servers:
+                        sv._rebase_pending = True
+                        sv._maybe_device_rebase()
+                    snapshot_s = time.perf_counter() - t0
+                    snapped = [sv._install_gen for sv in servers]
+                traffic.apply(emb)
+            gens = [sv._install_gen for sv in servers]
+            # The segment that extends each shard's newest base: what a
+            # restart replays (the store keeps the older base's too).
+            deltas = sum(os.path.getsize(os.path.join(
+                d, "delta-%016d.log" % g)) for d, g in zip(dirs, snapped))
+        finally:
+            close(servers, emb, stores)
+        stores = [CheckpointStore(d) for d in dirs]
+        servers, emb = start()
+        try:
+            ids = traffic.ids()
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(
+                    RECOVER_SHARDS) as pool:
+                points = list(pool.map(
+                    lambda pair: pair[0].attach_checkpoint(pair[1]),
+                    zip(servers, stores)))
+            rows = emb.lookup(ids)
+            recover_s = time.perf_counter() - t0
+            check(all(p is not None and p.gen == g
+                      and len(p.deltas) == g - s
+                      for p, g, s in zip(points, gens, snapped))
+                  and all(sv._dev_serving for sv in servers),
+                  f"cold restart: recovered gens "
+                  f"{[p and p.gen for p in points]}, want {gens}")
+            check(rows.tobytes() == traffic.replay[ids].tobytes(),
+                  "cold restart: the first Lookup differs from the replay")
+            check(np.concatenate([sv.table for sv in servers]).tobytes()
+                  == traffic.replay.tobytes(),
+                  "cold restart: the recovered table differs")
+        finally:
+            close(servers, emb, stores)
+    print(f"ps recover cold restart: {PS_VOCAB}x{PS_DIM} f32 "
+          f"({traffic.replay.nbytes} B) as {RECOVER_SHARDS} shards, each "
+          f"with its store (the shards' seeded draws on the host "
+          f"{draw_s:.3f} s); attach to empty stores (gen-0 bases) "
+          f"{attach_s * 1e3:.3f} ms; every shard's snapshot after "
+          f"{RECOVER_APPLIES} ApplyGrads of {PS_K} ids "
+          f"{snapshot_s * 1e3:.3f} ms; delta logs {deltas} B for the "
+          f"{RECOVER_APPLIES} ApplyGrads after it; recovery (fresh servers "
+          f"attached at once until the first Lookup is served) "
+          f"{recover_s * 1e3:.3f} ms to gens {min(gens)}-{max(gens)}, the "
+          f"first Lookup and the table bit-equal to the replay of all "
+          f"{2 * RECOVER_APPLIES}")
+    close_device_client(dev, "cold restart")
+
+
+def recover_split(shard):
+    """Step 4: a live split of the shard into two destinations under
+    ApplyGrads, one destination's handoff severed for its first three
+    attempts; after cutover both serve from the card and hold the replay's
+    rows bit for bit."""
+    from brpc_tpu_torch import fault, obs
+    from brpc_tpu_torch.device import DeviceClient
+    from brpc_tpu_torch.naming import PartitionScheme, ReplicaSet
+    from brpc_tpu_torch.ps_remote import RemoteEmbedding
+    from brpc_tpu_torch.reshard import MigrationDriver
+
+    traffic = ShardTraffic(shard.copy(), PS_SEED + 23,
+                           apply_k=RECOVER_STREAM_K)
+    errors0 = obs.counter("ps_migrate_connect_errors").get_value()
+    dev = DeviceClient()
+    src = recover_server(dev)
+    new = [recover_server(dev, shard_index=s, num_shards=2, importing=True,
+                          scheme_version=1) for s in range(2)]
+    fetches = []
+    snapshot = src._migration_snapshot
+
+    def counted(row0, count):
+        serving = src._dev_serving
+        out = snapshot(row0, count)
+        fetches.append(serving)
+        return out
+
+    src._migration_snapshot = counted
+    sc0 = PartitionScheme(0, (ReplicaSet.of(src.address),))
+    sc1 = PartitionScheme(1, tuple(ReplicaSet.of(sv.address) for sv in new))
+    emb = RemoteEmbedding([sc0], RECOVER_ROWS, PS_DIM, timeout_ms=30000,
+                          retry=recover_retry())
+    drv = MigrationDriver(sc0, sc1, RECOVER_ROWS)
+    try:
+        traffic.apply(emb)
+        fault.install(fault.FaultPlan(fault.partition_rules(
+            new[1].address, max_hits=3), seed=5))
+        t0 = time.perf_counter()
+        drv.start()
+        for _ in range(RECOVER_SPLIT_APPLIES):
+            traffic.apply(emb)
+        drv.wait_caught_up(deadline_s=120)
+        copy_s = time.perf_counter() - t0
+        fault.clear()
+        drv.cutover()
+        check(all(sv._dev_serving for sv in new),
+              "live split: a destination does not serve from the card")
+        emb.set_schemes([sc0.with_(state="draining", weight=0.0), sc1])
+        traffic.apply(emb)
+        traffic.lookup(emb, "live split, after cutover")
+        check(np.concatenate([sv.table for sv in new]).tobytes()
+              == traffic.replay.tobytes(),
+              "live split: the destinations' rows differ from the replay")
+        check(obs.counter("ps_migrate_connect_errors").get_value()
+              > errors0, "live split: the severed handoff went uncounted")
+        print(f"ps recover live split: 1 -> 2 under "
+              f"{RECOVER_SPLIT_APPLIES} ApplyGrads, destination 1 severed "
+              f"for 3 handoff attempts; copy (start until caught up) "
+              f"{copy_s * 1e3:.3f} ms; {len(fetches)} range snapshots, "
+              f"{sum(fetches)} of them whole-table fetches from the card; "
+              f"both destinations on the card, bit-equal to the replay "
+              f"after {traffic.applies} ApplyGrads")
+    finally:
+        fault.clear()
+        drv.close()
+        emb.close()
+        for sv in (src, *new):
+            sv.close()
+    close_device_client(dev, "live split")
+
+
+def fabric_line(fabric_rows, fabric_launches, press_launches,
+                recover_launches):
     """The fabric's four rows of the kernels line."""
     source = "brpc_tpu_torch/csrc/device_programs.cu"
     lines = {"add": 54, "reduce_sum": 64, "all_reduce_sum": 76,
@@ -1985,7 +2572,8 @@ def fabric_line(fabric_rows, fabric_launches, press_launches):
         "replaces": f"cpp/device/pjrt_executable.cc:{lines[kind]}",
         "design": designs[kind], "launches": fabric_launches[kind],
         "launches_by_path": {"device_fabric": fabric_launches[kind],
-                             "press": press_launches[kind]},
+                             "press": press_launches[kind],
+                             "ps_recover": recover_launches[kind]},
         **fabric_rows[kind]} for kind in FABRIC_KINDS]
 
 
@@ -2014,10 +2602,12 @@ def main() -> int:
     model_parallel = phase_model_parallel(card, dense_loss)
     fabric, fabric_rows = phase_device_fabric()
     pressed = phase_press(table)
+    recovered = phase_ps_recover(table)
 
     b, t = REQUESTS[0]
     k1_paths = {"tiny": tiny, **served, "model_parallel": model_parallel,
-                "device_fabric": fabric, "press": pressed}
+                "device_fabric": fabric, "press": pressed,
+                "ps_recover": recovered}
     k1_main = {"flash_attention": ("serve", torch.bfloat16,
                                    "wgmma+tma, split-p"),
                "flash_attention_f32": ("serve_f32", torch.float32,
@@ -2037,12 +2627,13 @@ def main() -> int:
         "replaces": "cpp/device/pjrt_executable.cc:100",
         "design": "StableHLO device program, not Pallas; a block per id",
         "launches": ps_launches["gather_rows"] + collective["gather_rows"]
-        + pressed["gather_rows"],
+        + pressed["gather_rows"] + recovered["gather_rows"],
         "launches_by_path": {"ps_serve": ps_launches["gather_rows"],
                              "ps_collective": collective["gather_rows"],
                              "model_parallel": model_parallel["gather_rows"],
                              "device_fabric": fabric["gather_rows"],
-                             "press": pressed["gather_rows"]},
+                             "press": pressed["gather_rows"],
+                             "ps_recover": recovered["gather_rows"]},
         **ps_rows["gather_rows"]}, {
         "name": "scatter_sub", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:121",
@@ -2050,14 +2641,15 @@ def main() -> int:
                   "the table in 32 KB tiles, ids grouped and sorted per "
                   "tile in shared memory",
         "launches": ps_launches["scatter_sub"] + collective["scatter_sub"]
-        + pressed["scatter_sub"],
+        + pressed["scatter_sub"] + recovered["scatter_sub"],
         "launches_by_path": {"ps_serve": ps_launches["scatter_sub"],
                              "ps_collective": collective["scatter_sub"],
                              "model_parallel": model_parallel["scatter_sub"],
                              "device_fabric": fabric["scatter_sub"],
-                             "press": pressed["scatter_sub"]},
+                             "press": pressed["scatter_sub"],
+                             "ps_recover": recovered["scatter_sub"]},
         **ps_rows["scatter_sub"]},
-        *fabric_line(fabric_rows, fabric, pressed)]}))
+        *fabric_line(fabric_rows, fabric, pressed, recovered)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

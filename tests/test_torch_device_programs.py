@@ -25,7 +25,8 @@ sums side by side are the reference's all-reduce.
 Tests marked ``cuda`` hold each kernel to its plain version on the card,
 and with two cards or more the collectives over peers: both all-reduce
 routes at sizes on both sides of the rule, misaligned inputs, 50 calls
-back to back, and the ordering of the peers' pushes after the receiving
+back to back, the ordering of the peers' pushes after the receiving
+card's pending work, and of the all-reduce's peer reads after the sending
 card's pending work; they skip without a card. Every test ends with no
 net growth of the port's handle ledger.
 """
@@ -599,6 +600,38 @@ def test_pushed_writes_follow_the_receivers_stream(cuda_device, replicas,
     for o in outs:
         assert _same_floats(_bits(o), want) if kind == "all_reduce_sum" \
             else _bits(o) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replicas", [2, 4])
+@pytest.mark.parametrize("route", ["two-shot", "one-shot"])
+def test_peer_reads_follow_the_senders_stream(cuda_device, replicas, route):
+    """On card r (the last), a sleep then a copy of new values into r's
+    input are queued. Every other replica reads that input over peer
+    access, so its kernel must wait for the copy (the ready events), or it
+    sums r's old values into its part of the result. Each route of the
+    all-reduce, forced."""
+    _need_cards(replicas)
+    n = 1 << 22
+    arrays = [_draw(n, 110 + d) for d in range(replicas)]
+    r = replicas - 1
+    fresh = _draw(n, 120)
+    with np.errstate(invalid="ignore"):
+        acc = np.zeros(n, np.float32)
+        for x in arrays[:r] + [fresh]:
+            acc = acc + x
+    xs = _on_cards(arrays)
+    two_shot = route == "two-shot"
+    dp._collective("all_reduce_sum", xs, two_shot)  # loads the kernels
+    y = torch.from_numpy(fresh).to(f"cuda:{r}")
+    _sync(replicas)
+    with torch.cuda.device(r):
+        torch.cuda._sleep(int(2e8))  # ~0.1 s at the H100's clock
+        xs[r].copy_(y)
+    outs = dp._collective("all_reduce_sum", xs, two_shot)
+    _sync(replicas)
+    for o in outs:
+        assert _same_floats(_bits(o), acc.tobytes())
 
 
 @pytest.mark.cuda

@@ -19,7 +19,9 @@ the programs are the plain versions of ``ops/embedding_rows.py``.
   ``MigrationDriver``, ``rebalance``'s ``Rebalancer``) and a CPU client in
   place of the PJRT one.
 - Marked ``cuda``: the same shard on the card against the shard on the CPU,
-  bit for bit; it skips without a card.
+  bit for bit, and the fault matrix's six scenarios (failover, the fenced
+  primary, the cold restart, the two splits, the failback) on the card's
+  client; they skip without a card.
 
 Each package loads its own build of the native core (the reference's
 ``cpp/build/``, the port's ``brpc_tpu_torch/_build/native/``), each with its
@@ -245,12 +247,24 @@ def _close_all(*servers):
         sv.close()
 
 
-def test_device_kill_primary_failover_zero_failed_lookups():
+# The fault matrix runs on the CPU client and, marked ``cuda``, on the card
+# (the kernels); a ``cuda`` case skips without a card.
+DEVICES = ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)]
+
+
+def _client(device):
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    return DeviceClient(device=device)
+
+
+@pytest.mark.parametrize("device", DEVICES)
+def test_device_kill_primary_failover_zero_failed_lookups(device):
     """Kill the HBM-serving primary under sustained load: every lookup
     and write still succeeds (redirect + failover), the backup's host
     mirror is STAGED INTO HBM at promotion, and the revived ex-primary
     is fenced back to a host-mirror backup."""
-    dev = DeviceClient(device="cpu")
+    dev = _client(device)
     servers, rs = _device_pair(dev)
     emb = RemoteEmbedding(
         [rs], VOCAB, DIM, timeout_ms=10000, retry=_retry_policy(),
@@ -315,12 +329,13 @@ def test_device_kill_primary_failover_zero_failed_lookups():
         dev.close()
 
 
-def test_device_fenced_stale_primary_rejected_and_mirrored_down():
+@pytest.mark.parametrize("device", DEVICES)
+def test_device_fenced_stale_primary_rejected_and_mirrored_down(device):
     """An out-of-band promotion the HBM-serving primary never heard
     about: its next propagation is refused with EFENCED, the write is
     NOT acked, and the stale primary demotes itself — folding the live
     device table down into the host mirror."""
-    dev = DeviceClient(device="cpu")
+    dev = _client(device)
     servers, _ = _device_pair(dev)
     old, new = servers
     mirrors0 = int(obs.counter("ps_device_mirror_downs").get_value())
@@ -381,12 +396,13 @@ def test_device_fenced_stale_primary_rejected_and_mirrored_down():
         dev.close()
 
 
-def test_device_checkpoint_cold_restart_bit_exact(tmp_path):
+@pytest.mark.parametrize("device", DEVICES)
+def test_device_checkpoint_cold_restart_bit_exact(tmp_path, device):
     """Cold restart from the durable ledger: every delta the device
     primary ACKED is teed into the CheckpointStore, and a FRESH device
     server replays base + chain to the exact acked generation —
     byte-for-byte, through the HBM roundtrip."""
-    dev = DeviceClient(device="cpu")
+    dev = _client(device)
     sv = DevicePsShardServer(VOCAB, DIM, 0, 1, lr=1.0, seed=3,
                              device_client=dev)
     store = CheckpointStore(str(tmp_path))
@@ -436,14 +452,15 @@ def test_device_checkpoint_cold_restart_bit_exact(tmp_path):
 # -- resharding and the rebalancer on the device tier ------------------------
 
 
-def test_device_split_severed_midcopy_recovers_byte_identical():
+@pytest.mark.parametrize("device", DEVICES)
+def test_device_split_severed_midcopy_recovers_byte_identical(device):
     """A LIVE 1→2 split off a device-serving source with the handoff
     plane of one destination severed mid-copy: the shipper backs off,
     reconnects, resyncs the range wholesale, and after cutover the
     destination DEVICE shards hold exactly the source's bytes — the
     generation-pinned device snapshot feeding unchanged MigrateSync
     framing."""
-    dev = DeviceClient(device="cpu")
+    dev = _client(device)
     src = DevicePsShardServer(VOCAB, DIM, 0, 1, lr=1.0,
                               device_client=dev)
     new = [DevicePsShardServer(VOCAB, DIM, s, 2, lr=1.0, importing=True,
@@ -490,13 +507,14 @@ def test_device_split_severed_midcopy_recovers_byte_identical():
         dev.close()
 
 
-def test_device_split_shipper_retargets_to_promoted_dest_backup():
+@pytest.mark.parametrize("device", DEVICES)
+def test_device_split_shipper_retargets_to_promoted_dest_backup(device):
     """Kill a REPLICATED destination's primary mid-split: the stranded
     shipper sweeps the destination replica group (``ReplicaState``,
     highest claiming epoch wins), re-points at the promoted backup and
     resyncs wholesale — ``ps_migration_retargets`` counts the save and
     the survivor converges byte-identical."""
-    dev = DeviceClient(device="cpu")
+    dev = _client(device)
     src = DevicePsShardServer(VOCAB, DIM, 0, 1, lr=1.0,
                               device_client=dev)
     dst_a = DevicePsShardServer(VOCAB, DIM, 0, 2, lr=1.0,
@@ -557,7 +575,8 @@ def test_device_split_shipper_retargets_to_promoted_dest_backup():
         dev.close()
 
 
-def test_device_rebalancer_failback_restages_declared_primary():
+@pytest.mark.parametrize("device", DEVICES)
+def test_device_rebalancer_failback_restages_declared_primary(device):
     """The rebalancer's autonomous failback on the device tier: a
     usurped device-serving primary that came back as a host-mirror
     backup is promoted back once caught up — and the fenced Promote
@@ -565,7 +584,7 @@ def test_device_rebalancer_failback_restages_declared_primary():
     copy of the reference's, needs no device knowledge: the same
     ReplicaState freshness gate and Promote wire call drive both
     tiers."""
-    dev = DeviceClient(device="cpu")
+    dev = _client(device)
     servers, rs = _device_pair(dev)
     declared, usurper = servers
     reg_server = rpc.Server()

@@ -480,9 +480,32 @@ def _pipeline(rank: int, inputs: dict) -> dict:
     return out
 
 
+def _obs_counters(rank: int, inputs: dict) -> dict:
+    """``tests/test_obs.py::test_collective_channel_counters`` on a rank:
+    the collective counters after one all-reduce and one all-gather."""
+    import torch
+
+    from brpc_tpu_torch import obs
+    from brpc_tpu_torch.parallel import CollectiveChannel, make_mesh
+
+    def count(name):
+        return torch.tensor(obs.counter(name).get_value())
+
+    obs.reset_fabric_vars()
+    mesh = make_mesh({"dp": 8}, device_type="cpu")
+    chan = CollectiveChannel(mesh, "dp")
+    x = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    chan.all_reduce(x)
+    out = {"all_reduce_calls": count("collective_all_reduce_calls"),
+           "all_reduce_bytes": count("collective_all_reduce_bytes")}
+    chan.all_gather(x)
+    out["all_gather_calls"] = count("collective_all_gather_calls")
+    return out
+
+
 PROGRAMS = {"parallel": _parallel, "ps": _ps,
             "sharded_train": _sharded_train, "ring": _ring, "moe": _moe,
-            "pipeline": _pipeline}
+            "pipeline": _pipeline, "obs_counters": _obs_counters}
 
 
 def _main(program: str, rank: int, world: int, workdir: str) -> None:
