@@ -156,9 +156,32 @@ is fatal when it fails:
    back to its value before the phase and the handle ledger holds no
    device buffer.
 
+14. the native core's device tier on the card, no Python in any of its
+   processes: the port's CUDA PJRT plugin (``brpc_tpu_torch/csrc/pjrt/``,
+   built in phase 1 beside the kernels, with the programs below built by
+   g++ against the port's native core) under the unchanged C++ fabric.
+   ``cpp/tests/test_device.cc`` with ``BRT_PJRT_PLUGIN`` at the plugin
+   must print ``ALL device tests OK`` (its ``SKIP`` fails the phase);
+   ``cpp/tests/test_collective.cc`` and ``cpp/tests/test_tpu_ps.cc``
+   must pass, run in a directory where ``libbrt_fake_pjrt.so``, the name
+   they open their plugin by, links to the CUDA plugin;
+   ``cpp/examples/tpu_ps.cc`` with the plugin must take its all-reduce on
+   the DEVICE path; then ``brpc_tpu_torch/csrc/examples/tpu_ps.cc`` at
+   Llama-3-8B's table (128256 x 4096 f32 in two shards on devices 0 and
+   1, lr 0.05, ``PS_K`` Zipf(1.1) ids a Lookup and a Push, 2 warm-up and 8
+   timed steps; then ``CollectiveChannel`` all-reduce and all-gather of
+   ``PS_K`` x 4096 floats over every power of two of members up to its
+   device count, with no RPC members) must report every Lookup, both
+   final tables and every collective bit-equal to its host model, every
+   collective on the device path and no buffer of the plugin alive at the
+   end. Each program runs under a timeout; a non-zero exit fails the
+   phase. The plugin writes each process's launches at exit
+   (``BRT_PJRT_COUNTS_FILE``); their sums are the phase's launches.
+
 The kernels line gives each kernel's launches by path
 (``launches_by_path``), phases 10 ("model_parallel"), 11
-("device_fabric"), 12 ("press") and 13 ("ps_recover") included; K1 has
+("device_fabric"), 12 ("press"), 13 ("ps_recover") and 14
+("native_device") included; K1 has
 one entry a kernel, bf16 ("flash_attention", main path "serve") and f32
 ("flash_attention_f32", main path "serve_f32"), each with the tiny
 phase's launches ("tiny").
@@ -327,6 +350,14 @@ RECOVER_FAILOVER_S = 2.0  # the closed loop with the primary dead
 RECOVER_APPLIES = 4  # ApplyGrads before the snapshot, and after it
 RECOVER_SPLIT_APPLIES = 3  # ApplyGrads while the split copies
 
+# Phase 14: the native programs, each with its time limit in seconds.
+NATIVE_PROGRAMS = {"test_device": ("cpp/tests/test_device.cc", 180),
+                   "test_collective": ("cpp/tests/test_collective.cc", 180),
+                   "test_tpu_ps": ("cpp/tests/test_tpu_ps.cc", 180),
+                   "tpu_ps_example": ("cpp/examples/tpu_ps.cc", 180),
+                   "tpu_ps": ("brpc_tpu_torch/csrc/examples/tpu_ps.cc", 420)}
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -469,6 +500,21 @@ def phase_build():
         for line in ptxas_report(log):
             print(f"ptxas {line}")
     return card
+
+
+def start_native_device_build():
+    """Phase 14's plugin and programs, built while the phases before it
+    run; returns the futures of (the plugin, {name: program}) and the
+    start time."""
+    from brpc_tpu_torch import native_device as nd
+
+    pool = concurrent.futures.ThreadPoolExecutor(len(NATIVE_PROGRAMS) + 1)
+    t0 = time.perf_counter()
+    plugin = pool.submit(nd.build_plugin, "cuda")
+    programs = {name: pool.submit(nd.build_program, src)
+                for name, (src, _) in NATIVE_PROGRAMS.items()}
+    pool.shutdown(wait=False)
+    return plugin, programs, t0
 
 
 def build_native_core():
@@ -2544,8 +2590,94 @@ def recover_split(shard):
     close_device_client(dev, "live split")
 
 
+def phase_native_device(built):
+    """Phase 14; returns each program's launches summed over its processes
+    (by the kernels line's names)."""
+    from brpc_tpu_torch import native_device as nd
+
+    phase_t0 = time.perf_counter()
+    plugin, programs, build_t0 = built
+    plugin = plugin.result()
+    programs = {name: f.result() for name, f in programs.items()}
+    print(f"native_device: plugin {plugin.name} and {len(programs)} "
+          f"programs ready {phase_t0 - build_t0:.3f} s after their builds "
+          f"began (beside phases 1-13), {time.perf_counter() - phase_t0:.3f} "
+          f"s waited")
+    run_dir = nd.link_as_test_plugin(plugin, nd.BUILD_DIR / "run-cuda")
+    counts = run_dir / "counts.jsonl"
+    counts.unlink(missing_ok=True)
+    env = dict(os.environ, BRT_PJRT_PLUGIN=str(plugin),
+               BRT_PJRT_COUNTS_FILE=str(counts))
+    args = {"tpu_ps_example": [str(plugin)],
+            "tpu_ps": ["--plugin", str(plugin), "--rows", str(PS_VOCAB),
+                       "--dim", str(PS_DIM), "--k", str(PS_K)]}
+    # The reference's tests open "./libbrt_fake_pjrt.so": from run_dir that
+    # name is the CUDA plugin.
+    outputs = {}
+    for name, (source, timeout_s) in NATIVE_PROGRAMS.items():
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run([str(programs[name]), *args.get(name, [])],
+                                  cwd=run_dir, env=env, capture_output=True,
+                                  text=True, timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"native_device: {source} ran over "
+                               f"{timeout_s} s")
+        out = proc.stdout
+        tail = "\n".join(out.splitlines()[-3:])
+        print(f"native_device: {source} exit {proc.returncode} in "
+              f"{time.perf_counter() - t0:.3f} s: {tail}")
+        check(proc.returncode == 0,
+              f"{source} exited {proc.returncode}:\n{out[-2000:]}\n"
+              f"{proc.stderr[-2000:]}")
+        outputs[name] = out
+    check("ALL device tests OK" in outputs["test_device"]
+          and "SKIP" not in outputs["test_device"],
+          "test_device did not pass on the plugin")
+    check("ALL collective tests OK" in outputs["test_collective"],
+          "test_collective did not pass")
+    check("ALL tpu_ps tests OK" in outputs["test_tpu_ps"],
+          "test_tpu_ps did not pass")
+    check("allreduce on DEVICE path" in outputs["tpu_ps_example"],
+          "cpp/examples/tpu_ps.cc did not take the device path")
+    report = json.loads(outputs["tpu_ps"].strip().splitlines()[-1])
+    check(report["ok"] and all(report["checks"].values())
+          and report["platform"] == "brt_cuda"
+          and (report["rows"], report["dim"]) == (PS_VOCAB, PS_DIM)
+          and report["live_buffers"] == 0,
+          f"native tpu_ps: {report}")
+    check(all(c["bit_equal"] and c["device_path"]
+              for c in report["collectives"]),
+          f"native collectives: {report['collectives']}")
+    print(f"native_device tpu_ps: {report['devices']} devices, table "
+          f"{report['rows']} x {report['dim']} f32 in {report['shards']} "
+          f"shards: staged in {report['table_stage_ms']:.4f} ms, fetched in "
+          f"{report['table_fetch_ms']:.4f} ms; Lookup {report['lookup_ms']} "
+          f"ms, Push {report['push_ms']} ms, split {report['split_ms']}")
+    for c in report["collectives"]:
+        print(f"native_device {c['op']} R={c['replicas']} n={c['n']}: "
+              f"{c['ms']} ms")
+    per_process = [json.loads(line)
+                   for line in counts.read_text().splitlines()]
+    check(len(per_process) == len(NATIVE_PROGRAMS),
+          f"counts of {len(per_process)} processes, want "
+          f"{len(NATIVE_PROGRAMS)}")
+    check(per_process[-1]["live_buffers"] == 0
+          and {k: per_process[-1][k] for k in report["launches"]}
+          == report["launches"],
+          f"tpu_ps's counts {per_process[-1]}, its report "
+          f"{report['launches']}")
+    launches = {kind: sum(p[kind] for p in per_process)
+                for kind in report["launches"]}
+    print(f"native_device: launches {launches} (by process: "
+          f"{per_process}); phase {time.perf_counter() - phase_t0:.3f} s")
+    check(all(launches.values()), f"a program launched no kernel: "
+          f"{launches}")
+    return launches
+
+
 def fabric_line(fabric_rows, fabric_launches, press_launches,
-                recover_launches):
+                recover_launches, native_launches):
     """The fabric's four rows of the kernels line."""
     source = "brpc_tpu_torch/csrc/device_programs.cu"
     lines = {"add": 54, "reduce_sum": 64, "all_reduce_sum": 76,
@@ -2570,10 +2702,12 @@ def fabric_line(fabric_rows, fabric_launches, press_launches,
     return [{
         "name": kind, "route": "cuda", "source": source,
         "replaces": f"cpp/device/pjrt_executable.cc:{lines[kind]}",
-        "design": designs[kind], "launches": fabric_launches[kind],
+        "design": designs[kind],
+        "launches": fabric_launches[kind] + native_launches[kind],
         "launches_by_path": {"device_fabric": fabric_launches[kind],
                              "press": press_launches[kind],
-                             "ps_recover": recover_launches[kind]},
+                             "ps_recover": recover_launches[kind],
+                             "native_device": native_launches[kind]},
         **fabric_rows[kind]} for kind in FABRIC_KINDS]
 
 
@@ -2587,6 +2721,7 @@ def main() -> int:
     print("tf32: off for matmul and cudnn")
 
     card = phase_build()
+    native_build = start_native_device_build()
     rows = phase_kernels()
     t0 = time.perf_counter()
     table = seeded_table()
@@ -2603,6 +2738,7 @@ def main() -> int:
     fabric, fabric_rows = phase_device_fabric()
     pressed = phase_press(table)
     recovered = phase_ps_recover(table)
+    native = phase_native_device(native_build)
 
     b, t = REQUESTS[0]
     k1_paths = {"tiny": tiny, **served, "model_parallel": model_parallel,
@@ -2627,13 +2763,15 @@ def main() -> int:
         "replaces": "cpp/device/pjrt_executable.cc:100",
         "design": "StableHLO device program, not Pallas; a block per id",
         "launches": ps_launches["gather_rows"] + collective["gather_rows"]
-        + pressed["gather_rows"] + recovered["gather_rows"],
+        + pressed["gather_rows"] + recovered["gather_rows"]
+        + native["gather_rows"],
         "launches_by_path": {"ps_serve": ps_launches["gather_rows"],
                              "ps_collective": collective["gather_rows"],
                              "model_parallel": model_parallel["gather_rows"],
                              "device_fabric": fabric["gather_rows"],
                              "press": pressed["gather_rows"],
-                             "ps_recover": recovered["gather_rows"]},
+                             "ps_recover": recovered["gather_rows"],
+                             "native_device": native["gather_rows"]},
         **ps_rows["gather_rows"]}, {
         "name": "scatter_sub", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:121",
@@ -2641,15 +2779,17 @@ def main() -> int:
                   "the table in 32 KB tiles, ids grouped and sorted per "
                   "tile in shared memory",
         "launches": ps_launches["scatter_sub"] + collective["scatter_sub"]
-        + pressed["scatter_sub"] + recovered["scatter_sub"],
+        + pressed["scatter_sub"] + recovered["scatter_sub"]
+        + native["scatter_sub"],
         "launches_by_path": {"ps_serve": ps_launches["scatter_sub"],
                              "ps_collective": collective["scatter_sub"],
                              "model_parallel": model_parallel["scatter_sub"],
                              "device_fabric": fabric["scatter_sub"],
                              "press": pressed["scatter_sub"],
-                             "ps_recover": recovered["scatter_sub"]},
+                             "ps_recover": recovered["scatter_sub"],
+                             "native_device": native["scatter_sub"]},
         **ps_rows["scatter_sub"]},
-        *fabric_line(fabric_rows, fabric, pressed, recovered)]}))
+        *fabric_line(fabric_rows, fabric, pressed, recovered, native)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,9 +7,17 @@ scripts (``fabric_routes.py``, ``tp_scaling.py``, ``f32_dense_gap.py``)
 included. The port's
 command-line tools (the linter, the fuzzer, the press harness), each run
 in a fresh interpreter, load neither package.
+
+The port's C++ sources stand alone too: its PJRT plugin
+(``brpc_tpu_torch/csrc/pjrt/``) includes nothing of ``cpp/`` but the PJRT
+C API's header (nothing of ``cpp/device/``), its native programs
+(``brpc_tpu_torch/csrc/examples/``) only the native core's headers, and
+the plugin's CUDA backend computes nothing on the host: each of its
+programs is a launch through a kernel's C entry point.
 """
 
 import ast
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -89,7 +97,8 @@ def test_imports_pull_in_neither_jax_nor_reference():
             "brpc_tpu_torch.press", "brpc_tpu_torch.analysis.callgraph",
             "brpc_tpu_torch.analysis.lint", "brpc_tpu_torch.analysis.fuzz",
             "brpc_tpu_torch.analysis.native",
-            "brpc_tpu_torch.analysis.__main__"} \
+            "brpc_tpu_torch.analysis.__main__",
+            "brpc_tpu_torch.native_device"} \
         <= set(names.split())
     assert bad.strip() == "[]"
 
@@ -105,3 +114,52 @@ def test_sources_import_neither_jax_nor_reference(path):
             continue
         assert not any(_forbidden(n) for n in names), \
             f"{path.relative_to(ROOT)}:{node.lineno} imports {names}"
+
+
+_PLUGIN = sorted((ROOT / "brpc_tpu_torch" / "csrc" / "pjrt").iterdir())
+_PROGRAMS = sorted((ROOT / "brpc_tpu_torch" / "csrc" / "examples").iterdir())
+_QUOTED = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+@pytest.mark.parametrize("path", _PLUGIN + _PROGRAMS, ids=lambda p: p.name)
+def test_native_sources_include_only_the_core_and_pjrt_header(path):
+    text = path.read_text()
+    assert "brpc_tpu/" not in text.replace("brpc_tpu_torch/", "")
+    for name in _QUOTED.findall(text):
+        if path in _PLUGIN:
+            # its own header, and of cpp/ only the PJRT C API
+            assert name in ("plugin.h", "third_party/pjrt/pjrt_c_api.h"), \
+                f"{path.name} includes {name}"
+        else:
+            found = ROOT / "cpp" / name
+            assert found.is_file() and name.split("/")[0] in (
+                "base", "cluster", "device", "fiber", "rpc", "var",
+                "transport"), f"{path.name} includes {name}"
+            assert "fake_pjrt" not in name
+
+
+def _method_body(text, name):
+    start = text.index(f"  std::string {name}(int d")
+    end = text.find("\n  std::string ", start + 1)
+    return text[start:end if end > 0 else len(text)]
+
+
+def test_cuda_backend_has_no_host_compute_path():
+    """Each program of the card's backend is one call of its kernel's C
+    entry point, and the file holds none of the host backend's arithmetic
+    or copies, nor a way to reach the host backend."""
+    text = (ROOT / "brpc_tpu_torch" / "csrc" / "pjrt" /
+            "cuda_backend.cu").read_text()
+    entries = {"Add": "brt_add_f32", "ReduceSum": "brt_reduce_sum_f32",
+               "GatherRows": "brt_gather_rows_f32",
+               "ScatterSub": "brt_scatter_sub_f32",
+               "AllReduce": "brt_all_reduce_sum_f32",
+               "AllGather": "brt_all_gather_f32"}
+    for method, entry in entries.items():
+        body = _method_body(text, method)
+        assert body.count(f"{entry}(") == 1, method
+        assert "for (" not in body and "while" not in body, method
+    for host_only in ("memcpy(", "memset(", "aligned_alloc", "malloc(",
+                      "host_backend", "HostBackend", "std::thread",
+                      "cudaLaunchHostFunc", "cudaMallocHost"):
+        assert host_only not in text, host_only
