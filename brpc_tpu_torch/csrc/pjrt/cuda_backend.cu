@@ -7,10 +7,17 @@
 // No card, no client: there is no host device and no host path here.
 //
 // Each device has one non-blocking stream. Buffers come from
-// cudaMallocAsync on it (the card's default pool, kept rather than
-// trimmed at every synchronisation, readable and writable by every card
-// of a collective once its peers are enabled) and go back with
-// cudaFreeAsync on it. Copies are cudaMemcpyAsync on the stream, from
+// cudaMallocAsync on it (the card's default pool, which keeps what is freed
+// rather than trimming it at every synchronisation, and is never opened to
+// another card) and go back with cudaFreeAsync on it. Where the devices
+// span cards, each card also has a peer pool (cudaMemPoolCreate, opened to
+// the other cards by EnablePeers, release threshold 0) for the buffers a
+// collective's peers read and write: its outputs and the copies of its
+// inputs (plugin.cc RunCollective). On the H100 a pool that keeps its freed
+// memory and is open to a peer card fails to grow (cudaErrorMemoryAllocation
+// with 80 GB free) after a few large blocks; a released one does not, but
+// maps its memory anew for every block, which the K2/K3 path of a shard
+// must not pay. Copies are cudaMemcpyAsync on the stream, from
 // and into the core's pageable blocks; the plugin's events follow a
 // marker recorded after them. Markers are CUDA events (blocking sync,
 // no timing), waited for by the plugin's completion threads, never by a
@@ -24,6 +31,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <map>
 #include <mutex>
 #include <set>
 #include <string>
@@ -89,13 +97,15 @@ class CudaBackend : public Backend {
     int card = 0;
     cudaStream_t stream = nullptr;
     void* scratch = nullptr;  // reduce_sum's f64 partials
+    cudaMemPool_t peer_pool = nullptr;  // where the devices span cards
   };
 
   // Filled by MakeBackend; an error leaves the backend unusable.
   std::string Init(int devices, int cards) {
     const size_t scratch =
         size_t(brt_reduce_sum_scratch_doubles()) * sizeof(double);
-    std::set<int> used;
+    spans_cards_ = devices > 1 && cards > 1;
+    std::map<int, cudaMemPool_t> peer_pools;  // by card
     for (int d = 0; d < devices; ++d) {
       Dev dev;
       dev.card = d % cards;
@@ -106,20 +116,38 @@ class CudaBackend : public Backend {
       cudaError_t err =
           cudaStreamCreateWithFlags(&dev.stream, cudaStreamNonBlocking);
       if (err == cudaSuccess) err = cudaMalloc(&dev.scratch, scratch);
+      if (err == cudaSuccess && !peer_pools.count(dev.card)) {
+        err = SetUpPools(dev.card, &peer_pools[dev.card]);
+      }
+      if (err == cudaSuccess) dev.peer_pool = peer_pools[dev.card];
       devs_.push_back(dev);
       if (err != cudaSuccess) return CudaError("device setup", err);
-      if (used.insert(dev.card).second) {
-        cudaMemPool_t pool;
-        err = cudaDeviceGetDefaultMemPool(&pool, dev.card);
-        uint64_t keep = UINT64_MAX;
-        if (err == cudaSuccess) {
-          err = cudaMemPoolSetAttribute(
-              pool, cudaMemPoolAttrReleaseThreshold, &keep);
-        }
-        if (err != cudaSuccess) return CudaError("memory pool", err);
-      }
     }
     return "";
+  }
+
+  // The card's default pool set to keep what is freed; with spans_cards_,
+  // a new peer pool on the card that releases it (*peer stays null else).
+  cudaError_t SetUpPools(int card, cudaMemPool_t* peer) {
+    cudaMemPool_t pool;
+    uint64_t keep = UINT64_MAX, release = 0;
+    cudaError_t err = cudaDeviceGetDefaultMemPool(&pool, card);
+    if (err == cudaSuccess) {
+      err = cudaMemPoolSetAttribute(pool, cudaMemPoolAttrReleaseThreshold,
+                                    &keep);
+    }
+    if (err != cudaSuccess || !spans_cards_) return err;
+    cudaMemPoolProps props = {};
+    props.allocType = cudaMemAllocationTypePinned;
+    props.handleTypes = cudaMemHandleTypeNone;
+    props.location.type = cudaMemLocationTypeDevice;
+    props.location.id = card;
+    err = cudaMemPoolCreate(peer, &props);
+    if (err == cudaSuccess) {
+      err = cudaMemPoolSetAttribute(*peer, cudaMemPoolAttrReleaseThreshold,
+                                    &release);
+    }
+    return err;
   }
 
   ~CudaBackend() override {
@@ -136,6 +164,8 @@ class CudaBackend : public Backend {
         if (cudaDeviceGetDefaultMemPool(&pool, dev.card) == cudaSuccess) {
           cudaMemPoolTrimTo(pool, 0);
         }
+        // Released once its last block is freed, if any is still out.
+        if (dev.peer_pool != nullptr) cudaMemPoolDestroy(dev.peer_pool);
       }
     }
   }
@@ -147,17 +177,13 @@ class CudaBackend : public Backend {
   }
 
   std::string Alloc(int d, size_t bytes, void** out) override {
-    *out = nullptr;
-    if (bytes == 0) return "";
-    const Dev& dev = devs_[size_t(d)];
-    CardScope scope(dev.card);
-    cudaError_t err = scope.error();
-    if (err == cudaSuccess) err = cudaMallocAsync(out, bytes, dev.stream);
-    return err == cudaSuccess
-               ? ""
-               : CudaError("cudaMallocAsync of " + std::to_string(bytes) +
-                               " bytes on device " + std::to_string(d),
-                           err);
+    return AllocFrom(d, bytes, nullptr, out);
+  }
+  std::string AllocPeer(int d, size_t bytes, void** out) override {
+    return AllocFrom(d, bytes, devs_[size_t(d)].peer_pool, out);
+  }
+  bool SpansCards(int replicas) const override {
+    return spans_cards_ && replicas > 1;
   }
   void Free(int d, void* p) override {
     const Dev& dev = devs_[size_t(d)];
@@ -171,6 +197,10 @@ class CudaBackend : public Backend {
   std::string CopyOut(int d, void* dst, const void* src,
                       size_t bytes) override {
     return Copy(d, dst, src, bytes, cudaMemcpyDeviceToHost);
+  }
+  std::string CopyWithin(int d, void* dst, const void* src,
+                         size_t bytes) override {
+    return Copy(d, dst, src, bytes, cudaMemcpyDeviceToDevice);
   }
 
   std::string Record(int d, Marker* out) override {
@@ -217,14 +247,13 @@ class CudaBackend : public Backend {
                  std::to_string(cb) + "'s memory (no peer access)";
         }
         if (err != 0) return CudaError("enabling peer access", err);
-        // cb's pool hands out the buffers ca's kernels read and write.
-        cudaMemPool_t pool;
+        // cb's peer pool hands out the buffers ca's kernels read and write.
         cudaMemAccessDesc access = {};
         access.location.type = cudaMemLocationTypeDevice;
         access.location.id = ca;
         access.flags = cudaMemAccessFlagsProtReadWrite;
-        cudaError_t e = cudaDeviceGetDefaultMemPool(&pool, cb);
-        if (e == cudaSuccess) e = cudaMemPoolSetAccess(pool, &access, 1);
+        cudaError_t e = cudaMemPoolSetAccess(devs_[size_t(b)].peer_pool,
+                                             &access, 1);
         if (e != cudaSuccess) return CudaError("cudaMemPoolSetAccess", e);
         peers_.insert({ca, cb});
       }
@@ -289,6 +318,33 @@ class CudaBackend : public Backend {
   }
 
  private:
+  // From `pool` (the card's default where null) on d's stream.
+  std::string AllocFrom(int d, size_t bytes, cudaMemPool_t pool,
+                        void** out) {
+    *out = nullptr;
+    if (bytes == 0) return "";
+    const Dev& dev = devs_[size_t(d)];
+    CardScope scope(dev.card);
+    cudaError_t err = scope.error();
+    if (err == cudaSuccess) {
+      err = pool == nullptr
+                ? cudaMallocAsync(out, bytes, dev.stream)
+                : cudaMallocFromPoolAsync(out, bytes, pool, dev.stream);
+    }
+    if (err == cudaSuccess) return "";
+    // What the card had left, for the message (a peer's pool may hold it).
+    size_t free_bytes = 0, total_bytes = 0;
+    cudaMemGetInfo(&free_bytes, &total_bytes);
+    return CudaError(std::string(pool == nullptr ? "cudaMallocAsync"
+                                                 : "cudaMallocFromPoolAsync")
+                         + " of " + std::to_string(bytes) + " bytes on device "
+                         + std::to_string(d) + " (card "
+                         + std::to_string(dev.card) + ": "
+                         + std::to_string(free_bytes) + " of "
+                         + std::to_string(total_bytes) + " bytes free)",
+                     err);
+  }
+
   std::string Copy(int d, void* dst, const void* src, size_t bytes,
                    cudaMemcpyKind kind) {
     const Dev& dev = devs_[size_t(d)];
@@ -305,6 +361,7 @@ class CudaBackend : public Backend {
   }
 
   std::vector<Dev> devs_;
+  bool spans_cards_ = false;
   std::mutex mu_;
   std::set<std::pair<int, int>> peers_;  // (card, peer) pairs enabled
 };

@@ -361,13 +361,16 @@ struct Buffer {
 
 Buffer* BufOf(PJRT_Buffer* b) { return reinterpret_cast<Buffer*>(b); }
 
-// A fresh buffer with its memory, or nullptr with *err set.
+// A fresh buffer with its memory (peer memory with `peer`), or nullptr
+// with *err set.
 Buffer* NewBuffer(const Client* c, int d, PJRT_Buffer_Type t,
-                  std::vector<int64_t> dims, std::string* err) {
+                  std::vector<int64_t> dims, std::string* err,
+                  bool peer = false) {
   size_t n = ElemSize(t);
   for (int64_t x : dims) n *= size_t(x);
   auto* b = new Buffer(c, d, t, std::move(dims), n);
-  *err = c->backend->Alloc(d, n, &b->ptr);
+  *err = peer ? c->backend->AllocPeer(d, n, &b->ptr)
+              : c->backend->Alloc(d, n, &b->ptr);
   if (!err->empty()) {
     delete b;
     return nullptr;
@@ -754,6 +757,10 @@ std::string RunSingle(Client* c, const Executable& e, int dev,
 // input, and writes into an output's block, only after the work its
 // owner had issued before the call, and nothing issued to a replica later
 // (a fetch of its output, a free of its input) overtakes a peer's access.
+// Where the replicas span cards, what the peers touch is peer memory: the
+// outputs are made there and an all-reduce's inputs (which the peers read)
+// are copied there before the ready markers; the copies are freed after
+// the join.
 std::string RunCollective(Client* c, const Executable& e,
                           PJRT_Buffer* const* const* args,
                           std::vector<Buffer*>* outs) {
@@ -761,11 +768,24 @@ std::string RunCollective(Client* c, const Executable& e,
   const int R = e.replicas;
   const int64_t n = e.n;
   const bool gather = e.program == Program::kAllGather;
+  const bool peer = be.SpansCards(R);
   std::string err;
   for (int d = 0; d < R && err.empty(); ++d) {
     Buffer* o = NewBuffer(c, d, PJRT_Buffer_Type_F32,
-                          {gather ? n * R : n}, &err);
+                          {gather ? n * R : n}, &err, peer);
     if (o != nullptr) outs->push_back(o);
+  }
+  std::vector<const float*> ins(static_cast<size_t>(R));
+  std::vector<std::unique_ptr<Buffer>> copies;
+  for (int d = 0; d < R && err.empty(); ++d) {
+    ins[size_t(d)] = BufOf(args[d][0])->f32();
+    if (!peer || gather || n == 0) continue;
+    copies.emplace_back(NewBuffer(c, d, PJRT_Buffer_Type_F32, {n}, &err,
+                                  true));
+    if (!err.empty()) break;
+    err = be.CopyWithin(d, copies.back()->ptr, ins[size_t(d)],
+                        size_t(n) * sizeof(float));
+    ins[size_t(d)] = copies.back()->f32();
   }
   std::vector<Marker> ready(size_t(R), nullptr), done(size_t(R), nullptr);
   auto destroy = [&be](std::vector<Marker>& ms) {
@@ -777,10 +797,8 @@ std::string RunCollective(Client* c, const Executable& e,
   for (int d = 0; d < R && err.empty() && R > 1; ++d) {
     err = be.Record(d, &ready[size_t(d)]);
   }
-  std::vector<const float*> ins(static_cast<size_t>(R));
   std::vector<float*> out_ptrs(static_cast<size_t>(R));
   for (int d = 0; d < R && err.empty(); ++d) {
-    ins[size_t(d)] = BufOf(args[d][0])->f32();
     out_ptrs[size_t(d)] = (*outs)[size_t(d)]->f32();
   }
   const bool two_shot = R > 1 && !gather && be.TwoShot(R, n);

@@ -90,6 +90,19 @@ class Backend {
   // Peer access between the devices' memories, for the collectives. An
   // error names a pair that has none.
   virtual std::string EnablePeers(int replicas) = 0;
+  // Whether replicas 0..replicas-1 lie on more than one card. Then a
+  // collective over them reads and writes only AllocPeer memory (inputs
+  // copied there with CopyWithin), which peers may access; Alloc memory is
+  // the card's own.
+  virtual bool SpansCards(int /*replicas*/) const { return false; }
+  virtual std::string AllocPeer(int d, size_t bytes, void** out) {
+    return Alloc(d, bytes, out);
+  }
+  // device -> device on d's stream.
+  virtual std::string CopyWithin(int /*d*/, void* /*dst*/,
+                                 const void* /*src*/, size_t /*bytes*/) {
+    return "CopyWithin is not supported by this backend";
+  }
   // The all-reduce's route: true for the two-shot.
   virtual bool TwoShot(int replicas, int64_t n) const = 0;
 

@@ -10,28 +10,28 @@ against the same step on one rank with dense attention and no sharding,
 at the reference's gates. Then one SGD step of the MoE layer with its
 experts sharded over 'ep', and the GPipe schedule over 'pp'.
 
-It starts ``n`` ranks (processes that meet through a ``FileStore`` in a
-temporary directory), or runs in the world it is given when this process
-already belongs to one of ``n`` ranks. ``device_type="cuda"`` runs NCCL
-over ``n`` cards and raises when there are fewer; ``"cpu"`` runs gloo. The
-CPU runs only when asked for: there is no fallback from the card.
+It starts ``n`` ranks (``parallel.mesh.run_world``: processes that meet
+through a ``FileStore`` in a temporary directory, all stopped, and the
+unfinished named, when one fails or the world runs over
+``WORLD_TIMEOUT_S``), or runs in the world it is given when this process
+already belongs to one of ``n`` ranks.
+``device_type="cuda"`` runs NCCL over ``n`` cards and raises when there
+are fewer; ``"cpu"`` runs gloo. The CPU runs only when asked for: there is
+no fallback from the card.
 """
 
 from __future__ import annotations
 
 import math
-import os
-import tempfile
 
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from brpc_tpu_torch import optim
 from brpc_tpu_torch.models import llama, moe
-from brpc_tpu_torch.parallel.mesh import PartitionSpec as P, init_world, \
-    make_mesh, shard_batch, shard_params
+from brpc_tpu_torch.parallel.mesh import PartitionSpec as P, make_mesh, \
+    run_world, shard_batch, shard_params
 from brpc_tpu_torch.parallel.pipeline import pipeline_apply
 from brpc_tpu_torch.parallel.ring import ring_attention
 from brpc_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -40,6 +40,9 @@ from brpc_tpu_torch.utils.tree import tree_leaves, tree_map
 LOSS_RTOL = LOSS_ATOL = 2e-3
 PARAM_RTOL = PARAM_ATOL = 5e-3
 CHECKED_LEAVES = 4
+# A started world's time limit: the spawn, every rank's imports and its
+# communicators included (about 50 s on four H100s).
+WORLD_TIMEOUT_S = 300.0
 
 
 def dryrun_multichip(n_devices: int, *, device_type: str = "cuda") -> str:
@@ -50,28 +53,13 @@ def dryrun_multichip(n_devices: int, *, device_type: str = "cuda") -> str:
             raise ValueError(f"a world of {dist.get_world_size()} ranks "
                              f"cannot run dryrun_multichip({n_devices})")
         return _dryrun_impl(n_devices, device_type)
-    if device_type == "cuda" and torch.cuda.device_count() < n_devices:
-        raise RuntimeError(f"dryrun_multichip({n_devices}) needs "
-                           f"{n_devices} CUDA devices, found "
-                           f"{torch.cuda.device_count()}")
-    with tempfile.TemporaryDirectory(prefix="dryrun-") as store:
-        mp.start_processes(_rank_main, (n_devices, store, device_type),
-                           nprocs=n_devices, join=True, start_method="spawn")
-        with open(os.path.join(store, "summary")) as f:
-            return f.read()
+    return run_world(_rank_main, n_devices, args=(n_devices,),
+                     device_type=device_type, timeout_s=WORLD_TIMEOUT_S)[0]
 
 
-def _rank_main(rank: int, n: int, store: str, device_type: str) -> None:
-    torch.set_num_threads(1)
-    init_world(store, rank, n, device_type)
-    try:
-        line = _dryrun_impl(n, device_type)
-        if rank == 0:
-            with open(os.path.join(store, "summary"), "w") as f:
-                f.write(line)
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
+def _rank_main(ctx, n: int) -> str:
+    ctx.part("dryrun")
+    return _dryrun_impl(n, ctx.device_type)
 
 
 def _dryrun_impl(n: int, device_type: str) -> str:

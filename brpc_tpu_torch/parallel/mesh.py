@@ -27,12 +27,18 @@ the port's own twin.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
 import os
-from typing import Dict, List, Optional
+import pickle
+import tempfile
+import time
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as mp
+from torch.multiprocessing.spawn import ProcessException
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.placement_types import Placement
@@ -57,16 +63,155 @@ class PartitionSpec(tuple):
 
 
 def init_world(store_dir: str, rank: int, world_size: int,
-               device_type: str = "cuda") -> None:
+               device_type: str = "cuda",
+               timeout: Optional[datetime.timedelta] = None) -> None:
     """Joins this process to a default process group of ``world_size``
     ranks that meet through a ``FileStore`` in ``store_dir``, so no TCP
     port is taken: NCCL for ``cuda``, gloo for ``cpu``. On ``cuda`` the
-    rank's card is ``rank % device_count``."""
+    rank's card is ``rank % device_count``, made current before anything
+    is allocated and bound to the group (``device_id``: the communicator
+    is made at once, on that card, and no collective guesses the rank's
+    card). ``timeout`` bounds the store's waits and each collective
+    (torch's default where None)."""
+    kw = {} if timeout is None else {"timeout": timeout}
     if device_type == "cuda":
-        torch.cuda.set_device(rank % torch.cuda.device_count())
+        card = rank % torch.cuda.device_count()
+        torch.cuda.set_device(card)
+        kw["device_id"] = torch.device("cuda", card)
     store = dist.FileStore(os.path.join(store_dir, "store"), world_size)
     dist.init_process_group("nccl" if device_type == "cuda" else "gloo",
-                            store=store, rank=rank, world_size=world_size)
+                            store=store, rank=rank, world_size=world_size,
+                            **kw)
+
+
+class WorldFailed(RuntimeError):
+    """A world of ``run_world`` failed or ran over its time limit; every
+    rank has been stopped. ``parts`` maps each rank that had not finished
+    to the part it was in."""
+
+    def __init__(self, message: str, parts: Dict[int, str]):
+        super().__init__(message)
+        self.parts = parts
+
+
+@dataclasses.dataclass(frozen=True)
+class RankContext:
+    """What ``run_world`` hands the body on each rank: its rank, the world
+    size, the device type, and ``part(name)``, which records the part the
+    rank is in so that a failed or hung world can name it."""
+
+    rank: int
+    world_size: int
+    device_type: str
+    store_dir: str
+
+    @property
+    def device(self) -> torch.device:
+        if self.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.device_type)
+
+    def part(self, name: str) -> None:
+        _write(os.path.join(self.store_dir, f"rank{self.rank}.part"),
+               name.encode())
+
+
+def _write(path: str, data: bytes) -> None:
+    """Replaces the file at ``path`` whole (a reader never sees half)."""
+    with open(path + ".tmp", "wb") as f:
+        f.write(data)
+    os.replace(path + ".tmp", path)
+
+
+def run_world(body: Callable, world_size: int, *, args: tuple = (),
+              device_type: str = "cuda", timeout_s: float) -> list:
+    """Runs ``body(ctx, *args)`` on ``world_size`` new processes (spawned),
+    each joined to one world by ``init_world`` with ``ctx`` a
+    ``RankContext``, and returns each rank's return value (pickled back:
+    host values only) in rank order. Rank r is on card r under ``cuda``,
+    one rank a card: fewer cards than ranks raise ``RuntimeError`` before
+    any process starts, and there is no fallback to the CPU.
+
+    The whole world has ``timeout_s`` seconds (each collective the same).
+    A rank that raises, or a world that runs over, stops every rank
+    (SIGKILL for one that does not stop) and raises ``WorldFailed`` naming
+    each unfinished rank and its part."""
+    if device_type == "cuda" and torch.cuda.device_count() < world_size:
+        raise RuntimeError(f"a world of {world_size} ranks needs "
+                           f"{world_size} CUDA devices, found "
+                           f"{torch.cuda.device_count()}")
+    with tempfile.TemporaryDirectory(prefix="world-") as store:
+        procs = mp.start_processes(
+            _rank_main, (body, args, world_size, store, device_type,
+                         timeout_s),
+            nprocs=world_size, join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not procs.join(timeout=max(
+                    0.0, min(1.0, deadline - time.monotonic())),
+                    grace_period=2.0):
+                if time.monotonic() >= deadline:
+                    parts = _unfinished(store, world_size)
+                    raise WorldFailed(
+                        f"a world of {world_size} ranks ran over its "
+                        f"{timeout_s} s: " + ", ".join(
+                            f"rank {r} in {p!r}" for r, p in parts.items()),
+                        parts)
+        except ProcessException as e:
+            # the ranks that raised, each with its traceback's last line
+            # (one rank's failure often makes its peers' collectives fail)
+            errors = {}
+            for rank, path in enumerate(procs.error_files):
+                if os.access(path, os.R_OK):
+                    with open(path, "rb") as f:
+                        errors[rank] = pickle.load(f).strip() \
+                            .splitlines()[-1]
+            parts = _unfinished(store, world_size)
+            raise WorldFailed(
+                f"a world of {world_size} ranks failed: " + "; ".join(
+                    f"rank {r} in {p!r}" + (f" raised {errors[r]}"
+                                            if r in errors else "")
+                    for r, p in parts.items()) + f"\n{e}", parts) from e
+        finally:
+            for p in procs.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        results = []
+        for rank in range(world_size):
+            with open(os.path.join(store, f"rank{rank}.result"), "rb") as f:
+                results.append(pickle.load(f))  # written by our own ranks
+        return results
+
+
+def _unfinished(store: str, world_size: int) -> Dict[int, str]:
+    """Each rank that wrote no result, with the last part it recorded."""
+    out = {}
+    for rank in range(world_size):
+        if os.path.exists(os.path.join(store, f"rank{rank}.result")):
+            continue
+        try:
+            with open(os.path.join(store, f"rank{rank}.part")) as f:
+                out[rank] = f.read()
+        except FileNotFoundError:
+            out[rank] = "starting"
+    return out
+
+
+def _rank_main(rank: int, body: Callable, args: tuple, world_size: int,
+               store: str, device_type: str, timeout_s: float) -> None:
+    torch.set_num_threads(1)
+    ctx = RankContext(rank, world_size, device_type, store)
+    ctx.part("init_world")
+    init_world(store, rank, world_size, device_type,
+               datetime.timedelta(seconds=timeout_s))
+    try:
+        result = body(ctx, *args)
+        ctx.part("final barrier")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    _write(os.path.join(store, f"rank{rank}.result"), pickle.dumps(result))
 
 
 def make_mesh(axis_sizes: Optional[Dict[str, int]] = None, *,

@@ -62,40 +62,28 @@ is fatal when it fails:
    request's split between staging, kernel, fetch and the rest (RPC and
    host work); then ``PS_THREADS`` client threads at once, each on its own
    rows, with the same exact ledger;
-9. the collective PS tier at that table: ``brpc_tpu_torch.ps`` on a mesh
-   (``make_mesh({"ps": 1})``) over an NCCL world of one process that meets
-   through a ``FileStore``. With the kernels' counts at 0: one ``lookup``
-   (bit-equal to the host's ``table[ids]``, one K2 launch), one
-   ``apply_gradients`` (bit-equal to ``np.subtract.at``, one K3 launch)
-   and ``PS_TRAIN_STEPS`` steps of ``make_ps_train_step`` (one K2 and one
-   K3 launch each; a finite loss that falls; the first step's table
-   against a host replay within ``PS_STEP_RTOL``). Then the backward's K3
-   call against its plain version, each ``CollectiveChannel`` op against
-   its definition, ``allreduce_benchmark`` at ``ALLREDUCE_MB`` (labelled
-   with its world size: on one card its bandwidth is 0 by construction),
-   the medians of ``PS_TIMED_CALLS`` calls of each entry point with the
-   peak memory, and one call of each under ``torch.profiler``;
-10. the model-parallel tier on a new NCCL world of one, with the kernels'
-   counts at 0 for the whole phase and read at its end (no kernel of the
-   repo is on these paths: each count must still be 0): (a)
-   ``dryrun_multichip(1)`` with its gates (mesh dp = tp = sp = 1); (b)
-   the sharded train step at Llama-3-8B width cut to ``TRAIN_LAYERS``
-   layers, params laid out by ``param_specs`` on
-   ``make_mesh({"tp": 1, "sp": 1})``, ring attention over 'sp' with the
-   heads over 'tp', batch (1, 2048): at f32 compute its loss and every
-   leaf's gradient against the unsharded step's on the same seeded params
-   (run first), within ``MP_GRAD_REL``; then at bf16 with AdamW
-   ``TRAIN_LR``, its first loss against phase 7's within ``MP_LOSS_TOL``,
-   ``TRAIN_STEPS`` timed steps with the median, tokens/s, FLOP share and
-   peak (finite, falling, under 80 GB), and one step under
-   ``torch.profiler`` (the ``collective`` kind is NCCL's kernels); (c)
-   ``moe_layer`` forward and backward at hidden 4096, intermediate 14336,
-   8 experts, top-1, capacity factor 2.0, ``MOE_TOKENS`` tokens, bf16
-   compute on f32 weights, ep = 1: median of ``MOE_STEPS`` and peak; the
-   dry run's MoE shape on the card against the CPU at f32; (d)
-   ``pipeline_apply`` at pp = 1 on the card against the CPU, and
-   ``ring_attention`` and ``ulysses_attention`` at sp = 1 and Llama-3-8B's
-   heads, (1, 2048), against dense attention at f32.
+9. the collective PS tier at that table: phase 15's part (f)
+   (``mc_ps``) on an NCCL world of one process that meets through a
+   ``FileStore``, ``brpc_tpu_torch.ps`` on ``make_mesh({"ps": 1})``. With
+   the kernels' counts at 0: one ``lookup`` (bit-equal to the host's
+   ``table[ids]``, one K2 launch), one ``apply_gradients`` (bit-equal to
+   ``np.subtract.at``, one K3 launch) and ``PS_TRAIN_STEPS`` steps of
+   ``make_ps_train_step`` (one K2 and one K3 launch each; a finite loss
+   that falls; the first step's table against a host replay within
+   ``PS_STEP_RTOL``). Then the backward's K3 call against its plain
+   version, each ``CollectiveChannel`` op against its definition,
+   ``allreduce_benchmark`` at ``ALLREDUCE_MB`` (labelled with its world
+   size: on one card its bandwidth is 0 by construction), the medians of
+   ``PS_TIMED_CALLS`` calls of each entry point with the peak memory, and
+   one call of each under ``torch.profiler``;
+10. the model-parallel tier: phase 15's parts (a)-(e) (``mc_model``) on
+   a new NCCL world of one, at ``mc_plan()``'s sizes and its layout for
+   one rank, {tp 1, sp 1}, with the kernels' counts at 0 for the whole
+   phase and read at its end (no kernel of the repo is on these paths:
+   each count must still be 0). Beside them, this phase's own checks: the
+   sharded step's first bf16 loss against phase 7's within
+   ``MP_LOSS_TOL``, and the dry run's MoE shape on the card against the
+   CPU at f32.
 
 11. the device fabric's K4 and K5 programs through ``DeviceClient``
    (``stage`` on device d, ``mlir``, ``compile``, ``execute``, ``fetch``)
@@ -177,11 +165,44 @@ is fatal when it fails:
    end. Each program runs under a timeout; a non-zero exit fails the
    phase. The plugin writes each process's launches at exit
    (``BRT_PJRT_COUNTS_FILE``); their sums are the phase's launches.
+15. the multi-card paths, for each world size W of ``MC_WORLDS`` that the
+   machine has cards for (with one card it prints one line, ``multi_card:
+   not run: 1 card, needs 2``, and checks nothing): a world of W spawned
+   processes, one NCCL rank a card (rank r on card r), that meet through a
+   ``FileStore`` (``parallel.mesh.run_world``: within
+   ``MC_WORLD_TIMEOUT_S``, every rank stopped and the unfinished ranks
+   named with their parts when one fails or the world runs over), runs
+   ``mc_rank``: (a) ``dryrun_multichip(W)`` at the reference's gates, its
+   summary line held to the reference's mesh rule (W = 4: ``mesh={'dp':
+   1, 'tp': 2, 'sp': 2}``, ``moe_ep=2``, ``pp=2``); (b) the sharded train
+   step at Llama-3-8B width cut to ``TRAIN_LAYERS`` layers on each layout
+   of ``mc_plan()`` (W = 4: {tp 2, sp 2} with ring attention over 'sp'
+   and the heads over 'tp', batch (1, 2048), and {dp 2, tp 2}, batch (2,
+   2048); W = 2: {sp 2}), first at f32 its loss and every leaf's gradient
+   against the unsharded step on each card within ``MP_GRAD_REL``, then
+   at bf16 with AdamW ``TRAIN_LR`` ``TRAIN_STEPS`` timed steps (finite,
+   falling, every card's peak under 80 GB, the FLOP share) and one under
+   ``torch.profiler`` on rank 0 (the ``collective`` kind is NCCL's
+   kernels); (c) ring and Ulysses attention at sp = W, Llama-3-8B's heads,
+   (1, 2048), causal and not, against dense attention within
+   ``MP_ATTN_TOL``, and the ring's gradient within ``MP_ATTN_TOL`` of its
+   largest element; (d) ``moe_layer`` at Mixtral-8x7B's widths over ep =
+   W against ep = 1 at f32 within ``MP_SMALL_TOL``, then ``MOE_STEPS`` at
+   bf16 (finite) with every card's peak; (e) ``pipeline_apply`` at pp = W
+   against the stages in turn; (f) phase 9's checks at Llama-3-8B's table
+   over ``make_mesh({"ps": W})`` (each card its 1/W of the rows, one K2
+   and one K3 launch a call on every card, ``allreduce_benchmark``
+   non-zero). Then (g) phase 14's ``test_device``, ``test_collective``
+   and the port's ``tpu_ps --shards W`` with ``BRT_PJRT_NUM_DEVICES=W``
+   (device d on card d), with its collectives over every power of two R
+   up to W. No kernel of the repo is on (a)-(e): their counts must stay
+   0.
 
 The kernels line gives each kernel's launches by path
 (``launches_by_path``), phases 10 ("model_parallel"), 11
-("device_fabric"), 12 ("press"), 13 ("ps_recover") and 14
-("native_device") included; K1 has
+("device_fabric"), 12 ("press"), 13 ("ps_recover"), 14
+("native_device") and 15 ("multi_card", summed over its ranks and
+processes) included; K1 has
 one entry a kernel, bf16 ("flash_attention", main path "serve") and f32
 ("flash_attention_f32", main path "serve_f32"), each with the tiny
 phase's launches ("tiny").
@@ -194,6 +215,7 @@ repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -349,6 +371,15 @@ RECOVER_WARMUP = 2  # Lookup/ApplyGrad pairs before the kill
 RECOVER_FAILOVER_S = 2.0  # the closed loop with the primary dead
 RECOVER_APPLIES = 4  # ApplyGrads before the snapshot, and after it
 RECOVER_SPLIT_APPLIES = 3  # ApplyGrads while the split copies
+
+# Phase 15: the multi-card paths, one NCCL rank a card, in a world of each
+# size of MC_WORLDS that the machine has cards for. A world's time limit
+# covers its spawn, every rank's imports and communicators and every part;
+# the native programs of (g) run with BRT_PJRT_NUM_DEVICES at the world's
+# size, device d on card d.
+MC_WORLDS = (2, 4)
+MC_WORLD_TIMEOUT_S = 360.0
+MC_NATIVE_PROGRAMS = ("test_device", "test_collective", "tpu_ps")
 
 # Phase 14: the native programs, each with its time limit in seconds.
 NATIVE_PROGRAMS = {"test_device": ("cpp/tests/test_device.cc", 180),
@@ -966,10 +997,11 @@ def seeded_table():
         np.float32)
 
 
-def zipf_ids(rng, perm, stride=1, offset=0):
-    """``PS_K`` ids whose ranks are Zipf-distributed over ``perm``; with a
-    stride, moved onto the rows ``id % stride == offset``."""
-    ids = perm[(rng.zipf(PS_ZIPF, PS_K) - 1) % PS_VOCAB]
+def zipf_ids(rng, perm, stride=1, offset=0, k=PS_K):
+    """``k`` ids whose ranks are Zipf-distributed over ``perm`` (a
+    permutation of the vocabulary); with a stride, moved onto the rows
+    ``id % stride == offset``."""
+    ids = perm[(rng.zipf(PS_ZIPF, k) - 1) % len(perm)]
     return (ids - ids % stride + offset).astype(np.int32)
 
 
@@ -1257,126 +1289,50 @@ def serve_concurrently(server, emb, replay, remote_embedding, obs, er):
           f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
 
 
-def phase_ps_collective(table, card):
-    """The collective PS tier on an NCCL world of one; returns the kernels'
-    launches on its main run (lookup, apply, train steps)."""
+@contextlib.contextmanager
+def world_of_one(prefix):
+    """This process as the one rank of an NCCL world that meets through a
+    ``FileStore`` in a temporary directory; yields (a ``RankContext`` for
+    phase 15's rank bodies, the seconds the world took to start)."""
     import torch.distributed as dist
 
     from brpc_tpu_torch.parallel import init_world
+    from brpc_tpu_torch.parallel.mesh import RankContext
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    with tempfile.TemporaryDirectory(prefix="ps-world-") as store:
+    with tempfile.TemporaryDirectory(prefix=prefix) as store:
         t0 = time.perf_counter()
         init_world(store, 0, 1, "cuda")
         try:
-            return ps_collective(table, card, time.perf_counter() - t0)
+            yield RankContext(0, 1, "cuda", store), time.perf_counter() - t0
         finally:
             dist.destroy_process_group()
 
 
-def ps_collective(table, card, init_s):
-    import torch.distributed as dist
-
-    from brpc_tpu_torch import ps
-    from brpc_tpu_torch.models.convert import embedding_from_reference
-    from brpc_tpu_torch.ops import embedding_rows as er
-    from brpc_tpu_torch.parallel import make_mesh
-
-    mesh = make_mesh({"ps": 1})
-    emb = embedding_from_reference(table, PS_VOCAB, PS_DIM, "ps", mesh)
-    rng = np.random.default_rng(PS_SEED + 3)
-    ids_np = zipf_ids(rng, rng.permutation(PS_VOCAB)).reshape(1, PS_K)
-    grads_np = rng.standard_normal((1, PS_K, PS_DIM)).astype(np.float32)
-    ids, grads = torch.from_numpy(ids_np).cuda(), torch.from_numpy(
-        grads_np).cuda()
-    targets = torch.zeros((1, PS_K, PS_DIM), device="cuda")
-    print(f"ps collective: NCCL world of {dist.get_world_size()} up in {init_s:.3f} "
-          f"s, mesh {tuple(mesh.mesh_dim_names)} {tuple(mesh.shape)}, table "
-          f"{PS_VOCAB}x{PS_DIM} f32 row-sharded over 'ps', ids (1, {PS_K}) "
-          f"Zipf({PS_ZIPF}), {len(np.unique(ids_np))} distinct, lr {PS_LR}, "
-          f"MSE to zero targets")
-    step = ps.make_ps_train_step("ps", "dp", mesh, PS_LR)
-
-    for kernel in er.launches:
-        er.launches[kernel] = 0
-    rows = ps.lookup(emb, ids, mesh)
-    torch.cuda.synchronize()
-    check(er.launches == {"gather_rows": 1, "scatter_sub": 0},
-          f"lookup launches {er.launches}")
-    new = ps.apply_gradients(emb, ids, grads, mesh, lr=PS_LR).table
-    torch.cuda.synchronize()
-    check(er.launches == {"gather_rows": 1, "scatter_sub": 1},
-          f"apply_gradients launches {er.launches}")
-    losses, state, first = [], emb, None
-    for _ in range(PS_TRAIN_STEPS):
-        state, loss = step(state, ids, targets)
-        losses.append(loss.item())
-        if first is None:
-            first = state.table.to_local().cpu().numpy()
-    launches = dict(er.launches)
-    want = {"gather_rows": 1 + PS_TRAIN_STEPS,
-            "scatter_sub": 1 + PS_TRAIN_STEPS}
-    check(launches == want, f"ps collective launches {launches}, want {want}")
-    del state
-
-    check(rows.cpu().numpy().tobytes() == table[ids_np].tobytes(),
-          "ps.lookup differs from the host's table[ids]")
-    host = table.copy()
-    np.subtract.at(host, ids_np.ravel(),
-                   np.float32(PS_LR) * grads_np.reshape(-1, PS_DIM))
-    check(new.to_local().cpu().numpy().tobytes() == host.tobytes(),
-          "ps.apply_gradients differs from np.subtract.at")
-    del rows, new, host
-    print(f"ps collective: lookup bit-equal to table[ids], apply_gradients "
-          f"bit-equal to np.subtract.at; main run launches {launches}")
-    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-          f"ps train losses {losses}")
-    err, differ = ps_step_replay(table, ids_np, first)
-    del first
-    print(f"ps collective: {PS_TRAIN_STEPS} train steps, losses "
-          f"{' '.join(f'{x:.9g}' for x in losses)}; first step's table "
-          f"against the host replay max_abs_err={err:.3e}, {differ} "
-          f"elements differ (rtol {PS_STEP_RTOL})")
-    backward_against_plain(emb, ids, mesh)
-    channel_ops(mesh)
-    timed = {
-        "lookup": lambda: ps.lookup(emb, ids, mesh),
-        "apply_gradients": lambda: ps.apply_gradients(
-            emb, ids, grads, mesh, lr=PS_LR),
-        "train_step": lambda: step(emb, ids, targets)}
-    medians = {}
-    for name, fn in timed.items():
-        fn()
-        torch.cuda.synchronize()
-        seconds = []
-        for _ in range(PS_TIMED_CALLS):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-        medians[name] = (statistics.median(seconds), min(seconds),
-                         max(seconds))
-    print(f"ps collective on {card}: " + " ".join(
-        f"{name}_ms median={m * 1e3:.3f} min={lo * 1e3:.3f} "
-        f"max={hi * 1e3:.3f}" for name, (m, lo, hi) in medians.items())
-        + f" ({PS_TIMED_CALLS} calls each) peak_mem_gb="
-        f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
-    for name, fn in timed.items():
-        profile_run(f"ps collective {name}", fn)
-    return launches
+def phase_ps_collective(table):
+    """Phase 9: phase 15's (f) (``mc_ps``) on an NCCL world of one; returns
+    the kernels' launches on its main run (lookup, apply, train steps)."""
+    plan = mc_plan()
+    torch.cuda.empty_cache()
+    with world_of_one("ps-world-") as (ctx, init_s):
+        print(f"ps collective: NCCL world of 1 up in {init_s:.3f} s")
+        out = mc_ps(ctx, plan, table)
+    report_ps("ps collective", plan, [{"ps": out}])
+    return out["launches"]
 
 
-def ps_step_replay(table, ids_np, got):
-    """The first train step on the host in f32: the MSE's gradient as
-    torch rounds it (1/N times 2·(pred - 0)), summed into each row in batch
-    order, then the table less lr times it. Returns (max |got - want|, the
-    number of elements that differ)."""
-    pred = table[ids_np.ravel()]
+def ps_step_replay(table, ids_np, got, lo=0):
+    """The first train step on the host in f32 for the rows ``lo`` on of
+    ``table`` that ``got`` holds (all of them by default): the MSE's
+    gradient as torch rounds it (1/N times 2·(pred - 0)), summed into each
+    row in batch order, then the rows less lr times it. Returns (max |got -
+    want|, the number of elements that differ)."""
+    ids = ids_np.ravel()
+    pred = table[ids]
     n = np.float32(1.0 / pred.size)
-    grad = np.zeros_like(table)
-    np.add.at(grad, ids_np.ravel(), n * (np.float32(2.0) * pred))
-    want = table - np.float32(PS_LR) * grad
+    mine = (ids >= lo) & (ids < lo + len(got))
+    grad = np.zeros_like(got)
+    np.add.at(grad, ids[mine] - lo, n * (np.float32(2.0) * pred[mine]))
+    want = table[lo:lo + len(got)] - np.float32(PS_LR) * grad
     err = float(np.abs(got - want).max())
     differ = int(np.count_nonzero(got != want))
     check(np.allclose(got, want, rtol=PS_STEP_RTOL, atol=0.0),
@@ -1384,241 +1340,96 @@ def ps_step_replay(table, ids_np, got):
     return err, differ
 
 
-def backward_against_plain(emb, ids, mesh):
-    """``lookup``'s backward is K3 on a zero shard with lr = -1: that call
-    against K3's plain version on the same inputs, bit for bit (not in the
-    main run's counts)."""
+def backward_against_plain(ctx, emb, ids, mesh, lo):
+    """``lookup``'s backward is K3 on a zero shard with lr = -1 over the
+    ids this rank owns (its rows from ``lo``): that call against K3's plain
+    version on the same inputs, bit for bit (not in the main run's
+    counts)."""
     from brpc_tpu_torch import ps
     from brpc_tpu_torch.ops import embedding_rows as er
 
     table = emb.table.detach().requires_grad_(True)
-    g = torch.randn((1, PS_K, PS_DIM), device="cuda",
-                    generator=torch.Generator("cuda").manual_seed(PS_SEED))
+    g = torch.randn((*ids.shape, emb.dim), device=ctx.device,
+                    generator=torch.Generator(ctx.device).manual_seed(PS_SEED))
     (got,) = torch.autograd.grad(ps.lookup(
         emb._replace(table=table), ids, mesh), table, g)
     got = got.to_local()
+    local = ids.reshape(-1).long() - lo
+    mine = (local >= 0) & (local < len(got))
     want = er.scatter_sub_reference(
-        torch.zeros_like(got), ids.reshape(-1),
-        g.reshape(PS_K, PS_DIM).contiguous(),
-        torch.tensor(-1.0, device="cuda"))
-    torch.cuda.synchronize()
+        torch.zeros_like(got), local.clamp(0, len(got) - 1).to(torch.int32),
+        g.reshape(-1, emb.dim).masked_fill(~mine[:, None], 0).contiguous(),
+        torch.tensor(-1.0, device=ctx.device))
+    mc_sync(ctx)
     check(same_bits(got, want),
           "lookup's backward (K3, lr -1) differs from its plain version")
-    print("ps collective: lookup's backward (K3 on a zero shard, lr -1) "
-          "bit-equal to K3's plain version")
 
 
 def channel_ops(mesh):
-    """Each ``CollectiveChannel`` op on the card against its definition on
-    a world of one, then ``allreduce_benchmark``."""
+    """Each ``CollectiveChannel`` op over 'ps' against its definition on
+    the world's ``n`` ranks (exact: small integers in f32), then
+    ``allreduce_benchmark``; returns the ops' names and the benchmark's
+    figures."""
     from brpc_tpu_torch.parallel import CollectiveChannel, allreduce_benchmark
 
     chan = CollectiveChannel(mesh, "ps")
-    x = torch.arange(64, dtype=torch.float32, device="cuda").reshape(8, 8)
+    n, me = chan.num_channels, chan.index
+    x = torch.arange(64, dtype=torch.float32,
+                     device=mesh.device_type).reshape(8, 8)
+    rows = 8 // n
+    block_sums = x.reshape(n, rows, 8).sum(1)  # what each rank reduces
     cases = {
-        **{f"all_reduce_{op}": (chan.all_reduce(x, op), x.sum(0))
-           for op in ("sum", "max", "min")},
-        "all_reduce_inplace": (chan.all_reduce_inplace(x), x),
+        "all_reduce_sum": (chan.all_reduce(x, "sum"), x.sum(0)),
+        "all_reduce_max": (chan.all_reduce(x, "max"), block_sums.amax(0)),
+        "all_reduce_min": (chan.all_reduce(x, "min"), block_sums.amin(0)),
+        # each rank's own value x + rank, summed over the ranks
+        "all_reduce_inplace": (chan.all_reduce_inplace(x + me),
+                               n * x + n * (n - 1) // 2),
         "all_gather": (chan.all_gather(x), x),
-        "reduce_scatter": (chan.reduce_scatter(x).full_tensor(), x),
-        "broadcast": (chan.broadcast(x, 0), x),
-        "shift": (chan.shift(x, 1).full_tensor(), x),
+        "reduce_scatter": (chan.reduce_scatter(x).full_tensor(), n * x),
+        "broadcast": (chan.broadcast(x, n - 1), x[(n - 1) * rows:]),
+        "shift": (chan.shift(x, 1).full_tensor(), x.roll(rows, 0)),
         "map_reduce": (chan.map_reduce(lambda s: (s * 2).sum(), x),
                        (x * 2).sum())}
     for name, (got, want) in cases.items():
-        check(torch.equal(got, want), f"CollectiveChannel.{name} on the card")
-    bench = allreduce_benchmark(mesh, "ps", size_mb=ALLREDUCE_MB)
-    print(f"ps collective: CollectiveChannel {sorted(cases)} equal their "
-          f"definitions on a world of {chan.num_channels}; "
-          f"allreduce_benchmark {ALLREDUCE_MB} MB: world_size="
-          f"{bench['world_size']} devices={bench['devices']} bytes="
-          f"{bench['bytes']} ms={bench['seconds'] * 1e3:.4f} "
-          f"gbps_per_chip={bench['gbps_per_chip']} (0 by construction on "
-          f"one rank: not a link speed)")
+        check(torch.equal(got, want),
+              f"CollectiveChannel.{name} on {n} ranks of {mesh.device_type}")
+    return sorted(cases), allreduce_benchmark(mesh, "ps",
+                                              size_mb=ALLREDUCE_MB)
 
 
-def phase_model_parallel(card, dense_loss):
-    """The model-parallel tier on an NCCL world of one (``dense_loss``:
-    phase 7's first loss, on the params and batch of (b)); returns the
-    kernels' launches over the whole phase (all 0: no kernel of the
-    repo is on these paths)."""
-    import torch.distributed as dist
-
+def phase_model_parallel(dense_loss):
+    """Phase 10: phase 15's (a)-(e) (``mc_model``) on an NCCL world of one,
+    the sharded step's first bf16 loss against phase 7's (``dense_loss``,
+    on the same params and batch), and the dry run's MoE shape on the card
+    against the CPU; returns the kernels' launches over the phase (all 0:
+    no kernel of the repo is on these paths)."""
     from brpc_tpu_torch.ops import embedding_rows as er
-    from brpc_tpu_torch.ops import flash_attention as fa
-    from brpc_tpu_torch.parallel import init_world
 
+    plan = mc_plan()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="mp-world-") as store:
-        init_world(store, 0, 1, "cuda")
-        try:
-            zero_counts(fa.launches, er.launches)
-            mp_dryrun()
-            mp_sharded_train(card, dense_loss)
-            mp_moe()
-            mp_pipeline_and_attention()
-            launches = {**flash_counts(), **er.launches}
-        finally:
-            dist.destroy_process_group()
+    with world_of_one("mp-world-") as (ctx, _):
+        out = mc_model(ctx, plan)
+        moe_card_against_cpu()
+    report_model("model parallel", plan, [out])
+    ((name, _, _),) = plan.layouts[1]
+    first = out[name]["losses"][0]
+    loss_err = abs(first - dense_loss) / abs(dense_loss)
+    print(f"model parallel: bf16 first loss {first} against the dense "
+          f"step's {dense_loss} (rel {loss_err:.3e}, bound {MP_LOSS_TOL})")
+    check(loss_err <= MP_LOSS_TOL,
+          f"sharded loss {first} against {dense_loss}")
+    launches = {**flash_counts(), **er.launches}
     check(not any(launches.values()),
           f"kernel launches on the model-parallel paths: {launches}")
     print(f"model parallel: kernel launches {launches}")
     return launches
 
 
-def mp_dryrun():
-    from brpc_tpu_torch.dryrun import dryrun_multichip
-
-    t0 = time.perf_counter()
-    line = dryrun_multichip(1)
-    print(f"model parallel: dryrun_multichip(1) passed its gates in "
-          f"{time.perf_counter() - t0:.3f} s")
-    check(line.startswith("dryrun_multichip(1): mesh={'dp': 1, 'tp': 1, "
-                          "'sp': 1} loss="), f"dry run summary {line!r}")
-
-
-def mp_sharded_train(card, dense_loss):
-    """The sharded step at Llama-3-8B width, ``TRAIN_LAYERS`` layers, on
-    a (dp, tp, sp) = (1, 1, 1) mesh with ring attention. First its loss
-    and every gradient at f32 compute against the unsharded step's on the
-    same seeded params (run first; its gradients kept, its params freed);
-    then the bf16 step, its first loss against phase 7's ``dense_loss``,
-    timed and profiled."""
-    from brpc_tpu_torch import optim
-    from brpc_tpu_torch.models import llama
-    from brpc_tpu_torch.parallel import (PartitionSpec, make_mesh,
-                                         ring_attention, shard_batch,
-                                         shard_params, tensor_parallel)
-    from brpc_tpu_torch.utils.tree import tree_leaves
-
-    cfg = dataclasses.replace(llama.LlamaConfig.llama3_8b(),
-                              n_layers=TRAIN_LAYERS)
-    b, t = TRAIN_BATCH
-    tokens = torch.randint(0, cfg.vocab_size, TRAIN_BATCH, device="cuda",
-                           generator=torch.Generator(device="cuda")
-                           .manual_seed(1))
-    mesh = make_mesh({"tp": 1, "sp": 1})
-    batch = shard_batch(tokens, PartitionSpec("dp", "sp"), mesh)
-
-    def ring(q, k, v):
-        return ring_attention(q, k, v, mesh=mesh, axis="sp", head_axis="tp")
-
-    def sharded(c):
-        return llama.trainable(shard_params(llama.init_params(
-            c, generator=torch.Generator(device="cuda").manual_seed(0),
-            device="cuda"), llama.param_specs(c), mesh))
-
-    f32 = dataclasses.replace(cfg, dtype=torch.float32)
-    params = llama.trainable(llama.init_params(
-        f32, generator=torch.Generator(device="cuda").manual_seed(0),
-        device="cuda"))
-    loss = llama.loss_fn(params, tokens, f32)
-    loss.backward()
-    want_loss, want = loss.item(), [p.grad for p in tree_leaves(params)]
-    del params, loss
-    torch.cuda.empty_cache()
-    params = sharded(f32)
-    got_loss = tensor_parallel.loss_and_grads(params, batch, f32,
-                                              ring).item()
-    errs = [(torch.linalg.vector_norm(p.grad.to_local() - w)
-             / torch.linalg.vector_norm(w)).item()
-            for p, w in zip(tree_leaves(params), want)]
-    del params, want
-    torch.cuda.empty_cache()
-    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
-    print(f"sharded train f32: Llama-3-8B width, {cfg.n_layers} of 32 "
-          f"layers, mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}, ring "
-          f"attention over sp with heads over tp, batch B={b} T={t}, against "
-          f"the unsharded step: loss {got_loss} against {want_loss} (rel "
-          f"{loss_rel:.3e}), gradients' relative L2 error per leaf "
-          f"{' '.join(f'{e:.3e}' for e in errs)} (bound {MP_GRAD_REL})")
-    check(loss_rel <= MP_GRAD_REL, f"sharded f32 loss {got_loss} against "
-          f"{want_loss}")
-    check(max(errs) <= MP_GRAD_REL, f"sharded gradients differ: {errs}")
-
-    torch.cuda.reset_peak_memory_stats()
-    params = sharded(cfg)
-    torch.cuda.empty_cache()
-    step = llama.make_train_step(cfg, optim.adamw(params, TRAIN_LR), ring)
-    losses, seconds = [], []
-    for _ in range(1 + TRAIN_STEPS):  # the first is the warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step(params, batch)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        losses.append(loss.item())
-    peak = torch.cuda.max_memory_allocated()
-    loss_err = abs(losses[0] - dense_loss) / abs(dense_loss)
-    print(f"sharded train bf16, AdamW lr {TRAIN_LR}: first loss "
-          f"{losses[0]} against the dense step's {dense_loss} (rel "
-          f"{loss_err:.3e}, bound {MP_LOSS_TOL})")
-    check(loss_err <= MP_LOSS_TOL,
-          f"sharded loss {losses[0]} against {dense_loss}")
-    timed = seconds[1:]
-    median = statistics.median(timed)
-    flops = train_flops(cfg, b, t)
-    flop_ms = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
-    print(f"sharded train losses (warm-up first): {losses}")
-    print(f"sharded train step x{TRAIN_STEPS} on {card}: ms median="
-          f"{median * 1e3:.3f} min={min(timed) * 1e3:.3f} "
-          f"max={max(timed) * 1e3:.3f} warmup={seconds[0] * 1e3:.3f} "
-          f"tokens_per_s median={b * t / median:.1f} peak_mem_gb="
-          f"{peak / 1e9:.3f} flop_share={flop_ms / (median * 1e3):.4f}")
-    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
-    check(losses[-1] < losses[0], f"sharded loss did not fall: {losses}")
-    check(peak < TRAIN_PEAK_LIMIT, f"sharded train peak {peak} bytes")
-    profile_run(f"sharded train step B={b} T={t} layers={cfg.n_layers}",
-                lambda: step(params, batch))
-    del params, step
-    torch.cuda.empty_cache()
-
-
-def mp_moe():
-    """``moe_layer`` forward and backward at the flagship's widths on
-    ep=1, bf16 compute on f32 master weights; then the dry run's MoE
-    shape on the card against the CPU at f32."""
-    from brpc_tpu_torch.models import llama, moe
-    from brpc_tpu_torch.parallel import make_mesh, shard_params
-
-    mesh = make_mesh({"ep": 1})
-    cfg = moe.MoeConfig(hidden=MOE_HIDDEN, intermediate=MOE_INTERMEDIATE,
-                        n_experts=MOE_EXPERTS, capacity_factor=2.0)
-    torch.cuda.reset_peak_memory_stats()
-    params = llama.trainable(shard_params(moe.init_moe_params(
-        cfg, generator=torch.Generator("cuda").manual_seed(0)),
-        moe.moe_param_specs(), mesh))
-    x = torch.randn((1, MOE_TOKENS, MOE_HIDDEN), device="cuda",
-                    generator=torch.Generator("cuda").manual_seed(1))
-
-    def fwd_bwd():
-        out, aux = moe.moe_layer(params, x, cfg)
-        loss = torch.mean(out ** 2) + 0.01 * aux
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return loss, grads
-
-    loss, grads = fwd_bwd()  # warm-up
-    check(math.isfinite(loss.item()) and all(
-        bool(torch.isfinite(g.to_local()).all()) for g in grads),
-          "MoE loss or gradients not finite")
-    del grads
-    seconds = []
-    for _ in range(MOE_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fwd_bwd()
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-    cap = max(1, int(cfg.capacity_factor * MOE_TOKENS / MOE_EXPERTS))
-    print(f"moe: hidden {MOE_HIDDEN} intermediate {MOE_INTERMEDIATE} "
-          f"{MOE_EXPERTS} experts, top-1, capacity {cap} a expert, "
-          f"{MOE_TOKENS} tokens, bf16 compute, ep=1: forward+backward x"
-          f"{MOE_STEPS} ms median={statistics.median(seconds) * 1e3:.3f} "
-          f"min={min(seconds) * 1e3:.3f} max={max(seconds) * 1e3:.3f} "
-          f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.3f} "
-          f"loss={loss.item():.6f}")
-    del params, x, loss
-    torch.cuda.empty_cache()
+def moe_card_against_cpu():
+    """The dry run's MoE shape (hidden 64, intermediate 128, 4 experts)
+    on the card against the CPU at f32: output, aux and gradients."""
+    from brpc_tpu_torch.models import moe
 
     small = moe.MoeConfig(hidden=64, intermediate=128, n_experts=4,
                           dtype=torch.float32)
@@ -1639,50 +1450,6 @@ def mp_moe():
           f"experts, f32) on the card against the CPU, output, aux and "
           f"gradients max |err| {err:.3e} (bound {MP_SMALL_TOL})")
     check(err <= MP_SMALL_TOL, f"MoE card against CPU: {err}")
-
-
-def mp_pipeline_and_attention():
-    """``pipeline_apply`` at pp=1 on the card against the CPU, then ring
-    and Ulysses attention at sp=1 and Llama-3-8B's heads against dense
-    attention, f32."""
-    from brpc_tpu_torch.models import llama
-    from brpc_tpu_torch.parallel import (make_mesh, pipeline_apply,
-                                         ring_attention, ulysses_attention)
-    from brpc_tpu_torch.parallel.pipeline import pipeline_apply_local
-
-    gen = torch.Generator().manual_seed(2)
-    w = torch.randn((1, 16, 16), generator=gen) * 0.3
-    x = torch.randn((16, 16), generator=gen)
-
-    def stage(p, m):
-        return torch.tanh(m @ p)
-
-    got = pipeline_apply(stage, w.cuda(), x.cuda(), mesh=make_mesh({"pp": 1}),
-                         axis="pp", microbatches=8).full_tensor().cpu()
-    want = pipeline_apply_local(stage, w[0], x, None, 0, 8)
-    err = (got - want).abs().max().item()
-    print(f"pipeline: pp=1, 8 microbatches, card against CPU max |err| "
-          f"{err:.3e} (bound {MP_SMALL_TOL})")
-    check(err <= MP_SMALL_TOL and torch.allclose(
-        want, torch.tanh(x @ w[0])), f"pipeline card against CPU: {err}")
-
-    b, t = TRAIN_BATCH
-    gen = torch.Generator("cuda").manual_seed(3)
-    q, k, v = (torch.randn((b, t, h, D), generator=gen, device="cuda")
-               for h in (HQ, HKV, HKV))
-    mesh = make_mesh({"sp": 1})
-    for causal in (True, False):
-        dense = llama.attention(q, k, v, causal=causal)
-        for name, fn in (("ring", ring_attention),
-                         ("ulysses", ulysses_attention)):
-            got = fn(q, k, v, mesh=mesh, axis="sp", causal=causal)
-            err = (got.to_local() - dense).abs().max().item()
-            print(f"{name}_attention sp=1 causal={causal} B={b} T={t} "
-                  f"Hq={HQ} Hkv={HKV} D={D} f32: against dense max |err| "
-                  f"{err:.3e} (bound {MP_ATTN_TOL})")
-            check(err <= MP_ATTN_TOL, f"{name} against dense: {err}")
-    del q, k, v
-    torch.cuda.empty_cache()
 
 
 def fabric_draw(rng, n, specials=True):
@@ -2593,91 +2360,790 @@ def recover_split(shard):
 def phase_native_device(built):
     """Phase 14; returns each program's launches summed over its processes
     (by the kernels line's names)."""
-    from brpc_tpu_torch import native_device as nd
+    phase_t0 = time.perf_counter()
+    plugin, programs = native_ready(built, "phases 1-13")
+    report, launches, per_process = native_run(
+        plugin, programs, list(NATIVE_PROGRAMS), {}, "native_device", [])
+    print(f"native_device: launches {launches} (by process: "
+          f"{per_process}); phase {time.perf_counter() - phase_t0:.3f} s")
+    return launches
 
+
+def native_ready(built, beside):
+    """The plugin and the programs of ``start_native_device_build``, once
+    built."""
     phase_t0 = time.perf_counter()
     plugin, programs, build_t0 = built
     plugin = plugin.result()
     programs = {name: f.result() for name, f in programs.items()}
     print(f"native_device: plugin {plugin.name} and {len(programs)} "
           f"programs ready {phase_t0 - build_t0:.3f} s after their builds "
-          f"began (beside phases 1-13), {time.perf_counter() - phase_t0:.3f} "
+          f"began (beside {beside}), {time.perf_counter() - phase_t0:.3f} "
           f"s waited")
+    return plugin, programs
+
+
+def native_run(plugin, programs, names, env_extra, label, tpu_ps_args):
+    """Runs the native programs ``names`` (of ``NATIVE_PROGRAMS``) in turn
+    on the CUDA plugin, each under its time limit, with ``env_extra`` in
+    their environment and ``tpu_ps_args`` after the port's ``tpu_ps``'s
+    own; every program must pass and ``tpu_ps`` must report every check
+    true. Returns (``tpu_ps``'s report, the launches summed over the
+    processes by kernel, each process's counts)."""
+    from brpc_tpu_torch import native_device as nd
+
+    # The programs are other processes: what this one keeps cached on a
+    # card is not theirs to use.
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = [torch.cuda.mem_get_info(card)[0]
+            for card in range(torch.cuda.device_count())]
+    print(f"{label}: free device memory before the programs, GB by card "
+          f"{[round(b / 1e9, 3) for b in free]}")
     run_dir = nd.link_as_test_plugin(plugin, nd.BUILD_DIR / "run-cuda")
-    counts = run_dir / "counts.jsonl"
+    counts = run_dir / f"counts-{label}.jsonl"
     counts.unlink(missing_ok=True)
     env = dict(os.environ, BRT_PJRT_PLUGIN=str(plugin),
-               BRT_PJRT_COUNTS_FILE=str(counts))
+               BRT_PJRT_COUNTS_FILE=str(counts), **env_extra)
     args = {"tpu_ps_example": [str(plugin)],
             "tpu_ps": ["--plugin", str(plugin), "--rows", str(PS_VOCAB),
-                       "--dim", str(PS_DIM), "--k", str(PS_K)]}
+                       "--dim", str(PS_DIM), "--k", str(PS_K),
+                       *tpu_ps_args]}
     # The reference's tests open "./libbrt_fake_pjrt.so": from run_dir that
     # name is the CUDA plugin.
     outputs = {}
-    for name, (source, timeout_s) in NATIVE_PROGRAMS.items():
+    for name in names:
+        source, timeout_s = NATIVE_PROGRAMS[name]
         t0 = time.perf_counter()
         try:
             proc = subprocess.run([str(programs[name]), *args.get(name, [])],
                                   cwd=run_dir, env=env, capture_output=True,
                                   text=True, timeout=timeout_s)
         except subprocess.TimeoutExpired:
-            raise SmokeFailure(f"native_device: {source} ran over "
+            raise SmokeFailure(f"{label}: {source} ran over "
                                f"{timeout_s} s")
         out = proc.stdout
         tail = "\n".join(out.splitlines()[-3:])
-        print(f"native_device: {source} exit {proc.returncode} in "
+        print(f"{label}: {source} exit {proc.returncode} in "
               f"{time.perf_counter() - t0:.3f} s: {tail}")
         check(proc.returncode == 0,
               f"{source} exited {proc.returncode}:\n{out[-2000:]}\n"
               f"{proc.stderr[-2000:]}")
         outputs[name] = out
-    check("ALL device tests OK" in outputs["test_device"]
-          and "SKIP" not in outputs["test_device"],
-          "test_device did not pass on the plugin")
-    check("ALL collective tests OK" in outputs["test_collective"],
-          "test_collective did not pass")
-    check("ALL tpu_ps tests OK" in outputs["test_tpu_ps"],
-          "test_tpu_ps did not pass")
-    check("allreduce on DEVICE path" in outputs["tpu_ps_example"],
-          "cpp/examples/tpu_ps.cc did not take the device path")
+    passed = {"test_device": "ALL device tests OK",
+              "test_collective": "ALL collective tests OK",
+              "test_tpu_ps": "ALL tpu_ps tests OK",
+              "tpu_ps_example": "allreduce on DEVICE path"}
+    for name in set(names) & set(passed):
+        check(passed[name] in outputs[name] and (
+            name != "test_device" or "SKIP" not in outputs[name]),
+              f"{label}: {NATIVE_PROGRAMS[name][0]} did not pass on the "
+              f"plugin")
     report = json.loads(outputs["tpu_ps"].strip().splitlines()[-1])
     check(report["ok"] and all(report["checks"].values())
           and report["platform"] == "brt_cuda"
           and (report["rows"], report["dim"]) == (PS_VOCAB, PS_DIM)
           and report["live_buffers"] == 0,
-          f"native tpu_ps: {report}")
+          f"{label}: native tpu_ps: {report}")
     check(all(c["bit_equal"] and c["device_path"]
               for c in report["collectives"]),
-          f"native collectives: {report['collectives']}")
-    print(f"native_device tpu_ps: {report['devices']} devices, table "
+          f"{label}: native collectives: {report['collectives']}")
+    print(f"{label} tpu_ps: {report['devices']} devices, table "
           f"{report['rows']} x {report['dim']} f32 in {report['shards']} "
           f"shards: staged in {report['table_stage_ms']:.4f} ms, fetched in "
           f"{report['table_fetch_ms']:.4f} ms; Lookup {report['lookup_ms']} "
           f"ms, Push {report['push_ms']} ms, split {report['split_ms']}")
     for c in report["collectives"]:
-        print(f"native_device {c['op']} R={c['replicas']} n={c['n']}: "
+        print(f"{label} {c['op']} R={c['replicas']} n={c['n']}: "
               f"{c['ms']} ms")
     per_process = [json.loads(line)
                    for line in counts.read_text().splitlines()]
-    check(len(per_process) == len(NATIVE_PROGRAMS),
-          f"counts of {len(per_process)} processes, want "
-          f"{len(NATIVE_PROGRAMS)}")
+    check(len(per_process) == len(names),
+          f"{label}: counts of {len(per_process)} processes, want "
+          f"{len(names)}")
     check(per_process[-1]["live_buffers"] == 0
           and {k: per_process[-1][k] for k in report["launches"]}
           == report["launches"],
-          f"tpu_ps's counts {per_process[-1]}, its report "
+          f"{label}: tpu_ps's counts {per_process[-1]}, its report "
           f"{report['launches']}")
     launches = {kind: sum(p[kind] for p in per_process)
                 for kind in report["launches"]}
-    print(f"native_device: launches {launches} (by process: "
-          f"{per_process}); phase {time.perf_counter() - phase_t0:.3f} s")
-    check(all(launches.values()), f"a program launched no kernel: "
+    check(all(launches.values()), f"{label}: a program launched no kernel: "
           f"{launches}")
+    return report, launches, per_process
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiCardPlan:
+    """The sizes of the parts of phase 15 (and of phases 9 and 10, its
+    world of one): ``mc_plan()`` is the chip run's. ``keep`` is for tests
+    only: each rank then also returns its parts' inputs and whole results,
+    which the tests hold against the reference."""
+
+    llama: object  # a LlamaConfig
+    layouts: dict  # world size -> ((name, mesh axes, batch (B, T)), ...)
+    attention: tuple  # (B, T, Hq, Hkv, D)
+    moe: tuple  # (hidden, intermediate, experts, tokens)
+    pipeline: tuple  # (width, rows, microbatches)
+    ps: tuple  # (vocab, dim, ids a call)
+    keep: bool = False
+
+
+def mc_plan():
+    from brpc_tpu_torch.models import llama
+
+    return MultiCardPlan(
+        llama=dataclasses.replace(llama.LlamaConfig.llama3_8b(),
+                                  n_layers=TRAIN_LAYERS),
+        layouts={1: (("tp1_sp1", {"tp": 1, "sp": 1}, TRAIN_BATCH),),
+                 2: (("sp2", {"sp": 2}, TRAIN_BATCH),),
+                 4: (("tp2_sp2", {"tp": 2, "sp": 2}, TRAIN_BATCH),
+                     ("dp2_tp2", {"dp": 2, "tp": 2},
+                      (2, TRAIN_BATCH[1])))},
+        attention=(*TRAIN_BATCH, HQ, HKV, D),
+        moe=(MOE_HIDDEN, MOE_INTERMEDIATE, MOE_EXPERTS, MOE_TOKENS),
+        pipeline=(4096, 128, 8),  # stages of Llama-3-8B's hidden width
+        ps=(PS_VOCAB, PS_DIM, PS_K))
+
+
+def mc_dryrun_ok(line, w):
+    """The dry run's summary line against the reference's mesh rule
+    (``__graft_entry__.py:171-173``): tp = 2 when w is even, sp = 2 when 4
+    divides w, dp the rest; MoE over ep = 2 and the pipeline over pp = 2
+    when w is even, neither else."""
+    tp = 2 if w % 2 == 0 else 1
+    sp = 2 if w % 4 == 0 else 1
+    mesh = {"dp": w // (tp * sp), "tp": tp, "sp": sp}
+    tail = (" moe_ep=2(loss=" in line
+            and line.endswith("\n  pp=2 pipeline step ok")) if w % 2 == 0 \
+        else "moe_ep" not in line and "\n" not in line
+    return line.startswith(f"dryrun_multichip({w}): mesh={mesh} loss=") \
+        and tail
+
+
+def mc_sync(ctx):
+    if ctx.device_type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mc_reset_peak(ctx):
+    if ctx.device_type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def mc_peak(ctx):
+    """This rank's peak of device memory since ``mc_reset_peak`` (0 on
+    the CPU, which has no such figure)."""
+    return torch.cuda.max_memory_allocated() \
+        if ctx.device_type == "cuda" else 0
+
+
+def mc_reduce(ctx, values, op):
+    """``values`` (floats) reduced over the world by ``op`` ("max" or
+    "sum"), as f64 on the world's device."""
+    import torch.distributed as dist
+
+    t = torch.tensor(values, dtype=torch.float64, device=ctx.device)
+    dist.all_reduce(t, dist.ReduceOp.MAX if op == "max" else
+                    dist.ReduceOp.SUM)
+    return t.tolist()
+
+
+def mc_numpy(x):
+    """A tensor's (a DTensor's whole) value on the host, f32."""
+    from torch.distributed.tensor import DTensor
+
+    x = x.detach()
+    return (x.full_tensor() if isinstance(x, DTensor) else x).float() \
+        .cpu().numpy()
+
+
+def mc_max_rel(ctx, pairs):
+    """For each (got, want, scale) of this rank: max |got - want| over the
+    world, divided by ``scale``."""
+    errs = mc_reduce(ctx, [(g.float() - w.float()).abs().max().item()
+                           for g, w, _ in pairs], "max")
+    return [e / s for e, (_, _, s) in zip(errs, pairs)]
+
+
+def mc_timed(ctx, fn, calls):
+    """(median, min, max) seconds of ``calls`` calls of ``fn`` after one
+    warm-up, each ended by a synchronisation."""
+    fn()
+    mc_sync(ctx)
+    seconds = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        mc_sync(ctx)
+        seconds.append(time.perf_counter() - t0)
+    return statistics.median(seconds), min(seconds), max(seconds)
+
+
+def mc_profile(ctx, label, fn):
+    """``fn`` on every rank (its collectives need them all), under
+    ``torch.profiler`` on rank 0 of a world on the card."""
+    if ctx.device_type == "cuda" and ctx.rank == 0:
+        profile_run(label, fn)
+    else:
+        fn()
+        mc_sync(ctx)
+
+
+def mc_part(ctx, out, name, fn, *args, **kw):
+    """``fn(*args, **kw)`` as the part ``name``: the name recorded first, so
+    that a world that fails or hangs names it, the seconds into
+    ``out["seconds"]``."""
+    ctx.part(name)
+    t0 = time.perf_counter()
+    result = fn(*args, **kw)
+    mc_sync(ctx)
+    out["seconds"][name] = time.perf_counter() - t0
+    return result
+
+
+def mc_rank(ctx, plan, table_path):
+    """Phase 15's rank program, parts (a)-(f), on one rank of a world
+    (``ctx``, a ``RankContext``). Returns the rank's results (host
+    values)."""
+    out = mc_model(ctx, plan)
+    out["ps"] = mc_part(ctx, out, "(f) collective PS", mc_ps, ctx, plan,
+                        table_path)
+    return out
+
+
+def mc_model(ctx, plan):
+    """Parts (a)-(e) on one rank, with the kernels' counts at 0 first and
+    read last: no kernel of the repo is on these paths."""
+    from brpc_tpu_torch.dryrun import dryrun_multichip
+    from brpc_tpu_torch.ops import embedding_rows as er
+    from brpc_tpu_torch.ops import flash_attention as fa
+    from brpc_tpu_torch.utils.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": ctx.rank, "seconds": {}}
+    zero_counts(fa.launches, er.launches)
+    out["dryrun"] = mc_part(ctx, out, "(a) dryrun_multichip",
+                            dryrun_multichip, ctx.world_size,
+                            device_type=ctx.device_type)
+    init = mc_part(ctx, out, "(b) Llama params drawn", mc_llama_init, ctx,
+                   plan)
+    if plan.keep:
+        out["llama_init"] = tree_map(mc_numpy, init)
+    for name, axes, batch in plan.layouts[ctx.world_size]:
+        out[name] = mc_part(ctx, out, f"(b) sharded step {name}",
+                            mc_sharded_step, ctx, plan, init, axes, batch)
+    del init
+    out["attention"] = mc_part(ctx, out, "(c) ring and Ulysses attention",
+                               mc_attention, ctx, plan)
+    out["moe"] = mc_part(ctx, out, "(d) MoE over ep", mc_moe, ctx, plan)
+    out["pipeline"] = mc_part(ctx, out, "(e) pipeline", mc_pipeline, ctx,
+                              plan)
+    out["model_launches"] = {**flash_counts(), **er.launches}
+    check(not any(out["model_launches"].values()),
+          f"kernel launches on the model-parallel paths: "
+          f"{out['model_launches']}")
+    return out
+
+
+def mc_llama_init(ctx, plan):
+    """The unsharded f32 params, drawn from seed 0 on this rank's device:
+    every rank draws the same."""
+    from brpc_tpu_torch.models import llama
+
+    return llama.init_params(
+        plan.llama, generator=torch.Generator(ctx.device).manual_seed(0),
+        device=ctx.device)
+
+
+def mc_sharded_step(ctx, plan, init, axes, batch):
+    """(b) on one layout: at f32 compute the unsharded step on this rank's
+    card (``init`` itself), then the sharded step on the mesh ``axes``, its
+    loss and every leaf's gradient against the unsharded ones within
+    ``MP_GRAD_REL`` (relative L2 over the world); then at bf16 with AdamW
+    ``TRAIN_LR`` a warm-up and ``TRAIN_STEPS`` timed steps (finite, falling
+    losses, this card's peak under 80 GB) and one step under the profiler
+    on rank 0. Ring attention over 'sp' (heads over 'tp') where the mesh
+    has an 'sp' axis, dense attention on the rank's heads otherwise."""
+    from brpc_tpu_torch import optim
+    from brpc_tpu_torch.models import llama
+    from brpc_tpu_torch.parallel import (PartitionSpec, make_mesh,
+                                         ring_attention, shard_batch,
+                                         shard_params, tensor_parallel)
+    from brpc_tpu_torch.parallel.mesh import local_block
+    from brpc_tpu_torch.utils.tree import tree_leaves
+
+    cfg = plan.llama
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    mesh = make_mesh(axes, device_type=ctx.device_type)
+    tokens = torch.randint(0, cfg.vocab_size, batch, device=ctx.device,
+                           generator=torch.Generator(ctx.device)
+                           .manual_seed(1))
+    sharded_tokens = shard_batch(tokens, PartitionSpec("dp", "sp"), mesh)
+    attn = None
+    if "sp" in axes:
+        def attn(q, k, v):
+            return ring_attention(q, k, v, mesh=mesh, axis="sp",
+                                  head_axis="tp")
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "batch": batch, "ring": attn is not None}
+
+    mc_reset_peak(ctx)
+    dense = llama.trainable(init)
+    loss = llama.loss_fn(dense, tokens, f32)
+    loss.backward()
+    want_loss, want = loss.item(), [p.grad for p in tree_leaves(dense)]
+    del dense, loss
+    params = llama.trainable(shard_params(init, llama.param_specs(cfg),
+                                          mesh))
+    got_loss = tensor_parallel.loss_and_grads(params, sharded_tokens, f32,
+                                              attn).item()
+    # Each distinct block is held by as many ranks as every other, so the
+    # sums over the world give the global ratio.
+    sums = []
+    for p, w, spec in zip(tree_leaves(params), want,
+                          tree_leaves(llama.param_specs(cfg))):
+        w = local_block(w, spec, mesh)
+        sums += [torch.sum((p.grad.to_local() - w).double() ** 2).item(),
+                 torch.sum(w.double() ** 2).item()]
+    sums = mc_reduce(ctx, sums, "sum")
+    out["grad_rel"] = [math.sqrt(num / den)
+                       for num, den in zip(sums[::2], sums[1::2])]
+    out["f32_loss"], out["dense_loss"] = got_loss, want_loss
+    out["loss_rel"] = abs(got_loss - want_loss) / abs(want_loss)
+    out["f32_peak"] = mc_peak(ctx)
+    if plan.keep:
+        out["tokens"] = tokens.cpu().numpy()
+        out["grads"] = [mc_numpy(p.grad) for p in tree_leaves(params)]
+    del params, want
+    check(out["loss_rel"] <= MP_GRAD_REL,
+          f"sharded f32 loss {got_loss} against the unsharded {want_loss}")
+    check(max(out["grad_rel"]) <= MP_GRAD_REL,
+          f"sharded gradients differ: {out['grad_rel']}")
+
+    mc_reset_peak(ctx)
+    params = llama.trainable(shard_params(init, llama.param_specs(cfg),
+                                          mesh))
+    step = llama.make_train_step(cfg, optim.adamw(params, TRAIN_LR), attn)
+    losses, seconds = [], []
+    for _ in range(1 + TRAIN_STEPS):  # the first is the warm-up
+        mc_sync(ctx)
+        t0 = time.perf_counter()
+        loss = step(params, sharded_tokens)
+        mc_sync(ctx)
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+    out.update(losses=losses, step_s=seconds, peak=mc_peak(ctx))
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"sharded bf16 losses {losses}")
+    check(out["peak"] < TRAIN_PEAK_LIMIT, f"peak {out['peak']} bytes")
+    b, t = batch
+    mc_profile(ctx, f"sharded step W={ctx.world_size} mesh={out['mesh']} "
+               f"B={b} T={t} layers={cfg.n_layers}",
+               lambda: step(params, sharded_tokens))
+    return out
+
+
+def mc_attention(ctx, plan):
+    """(c) ``ring_attention`` and ``ulysses_attention`` at sp = the world
+    size, f32, causal and not, each rank's block against dense attention
+    on the whole q/k/v within ``MP_ATTN_TOL``; then the gradient of
+    sum(ring(q, k, v)²) (causal; each rank's block's sum, summed over the
+    ranks) against dense attention's, within ``MP_ATTN_TOL`` of its
+    largest element: the gradients of a sum over 2048 queries are far
+    above 1, where f32 sums in another order differ by more than the
+    outputs' absolute bound (1.5e-4 at sp = 2 on the H100)."""
+    import torch.distributed as dist
+
+    from brpc_tpu_torch.models import llama
+    from brpc_tpu_torch.parallel import (PartitionSpec, make_mesh,
+                                         ring_attention, ulysses_attention)
+    from brpc_tpu_torch.parallel.mesh import local_block
+
+    b, t, hq, hkv, d = plan.attention
+    mesh = make_mesh({"sp": ctx.world_size}, device_type=ctx.device_type)
+    gen = torch.Generator(ctx.device).manual_seed(3)
+    q, k, v = (torch.randn((b, t, h, d), generator=gen, device=ctx.device)
+               for h in (hq, hkv, hkv))
+    dq, dk, dv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    dense = llama.attention(dq, dk, dv, causal=True)
+    (dense ** 2).sum().backward()
+    want = local_block(dense.detach(), PartitionSpec(None, "sp"), mesh)
+    ring = ring_attention(q, k, v, mesh=mesh, axis="sp", causal=True)
+    ulysses = ulysses_attention(q, k, v, mesh=mesh, axis="sp", causal=True)
+    full = local_block(llama.attention(q, k, v, causal=False),
+                       PartitionSpec(None, "sp"), mesh)
+    pairs = [(ring.to_local(), want, 1.0), (ulysses.to_local(), want, 1.0),
+             *((fn(q, k, v, mesh=mesh, axis="sp", causal=False).to_local(),
+                full, 1.0) for fn in (ring_attention, ulysses_attention))]
+    rq, rk, rv = (x.detach().requires_grad_(True) for x in (q, k, v))
+    (ring_attention(rq, rk, rv, mesh=mesh, axis="sp").to_local() ** 2) \
+        .sum().backward()
+    for x in (rq, rk, rv):
+        dist.all_reduce(x.grad)
+    scales = [y.grad.abs().max().item() for y in (dq, dk, dv)]
+    errs = mc_max_rel(ctx, [*pairs, *(
+        (x.grad, y.grad, scale)
+        for x, y, scale in zip((rq, rk, rv), (dq, dk, dv), scales))])
+    out = {"ring": errs[0], "ulysses": errs[1], "ring_full": errs[2],
+           "ulysses_full": errs[3], "ring_grad": max(errs[4:]),
+           "ring_grad_abs": max(e * s for e, s in zip(errs[4:], scales)),
+           "grad_largest": max(scales)}
+    if plan.keep:
+        out.update(q=mc_numpy(q), k=mc_numpy(k), v=mc_numpy(v),
+                   ring_out=mc_numpy(ring), ulysses_out=mc_numpy(ulysses),
+                   grads=[mc_numpy(x.grad) for x in (rq, rk, rv)])
+    check(max(errs) <= MP_ATTN_TOL, f"ring and Ulysses against dense: "
+          f"{out}")
+    return out
+
+
+def mc_moe(ctx, plan):
+    """(d) ``moe_layer`` with its experts over 'ep' = the world, forward
+    and backward of mean(out²) + 0.01·aux at f32, against the same layer
+    at ep = 1 on this rank's card (each result's max |err| over its
+    largest element, within ``MP_SMALL_TOL``); then ``MOE_STEPS`` timed
+    forward+backward passes at bf16 compute on the f32 master weights,
+    whose loss and gradients must be finite."""
+    from brpc_tpu_torch.models import llama, moe
+    from brpc_tpu_torch.parallel import make_mesh, shard_params
+    from brpc_tpu_torch.parallel.mesh import local_block
+
+    hidden, intermediate, experts, n = plan.moe
+    f32 = moe.MoeConfig(hidden=hidden, intermediate=intermediate,
+                        n_experts=experts, capacity_factor=2.0,
+                        dtype=torch.float32)
+    mc_reset_peak(ctx)
+    init = moe.init_moe_params(
+        f32, generator=torch.Generator(ctx.device).manual_seed(0),
+        device=ctx.device)
+    x = torch.randn((1, n, hidden), device=ctx.device,
+                    generator=torch.Generator(ctx.device).manual_seed(1))
+
+    def fwd_bwd(params, cfg):
+        xg = x.detach().requires_grad_(True)
+        out, aux = moe.moe_layer(params, xg, cfg)
+        loss = torch.mean(out.float() ** 2) + 0.01 * aux
+        return out, aux, torch.autograd.grad(loss, [*params.values(), xg])
+
+    one_out, one_aux, one_grads = fwd_bwd(llama.trainable(init), f32)
+    mesh = make_mesh({"ep": ctx.world_size}, device_type=ctx.device_type)
+    specs = moe.moe_param_specs()
+    sharded = llama.trainable(shard_params(init, specs, mesh))
+    out, aux, grads = fwd_bwd(sharded, f32)
+    pairs = [(out, one_out, one_out.abs().max().item())]
+    for name, g, w in zip([*sharded, "x"], grads, one_grads):
+        local = g.to_local() if name != "x" else g
+        block = local_block(w, specs[name], mesh) if name != "x" else w
+        pairs.append((local, block, w.abs().max().item()))
+    errs = mc_max_rel(ctx, pairs)
+    result = {"out": errs[0], "grads": dict(zip([*sharded, "x"], errs[1:])),
+              "aux": aux.item(), "aux_rel": abs(aux.item() - one_aux.item())
+              / abs(one_aux.item())}
+    if plan.keep:
+        result.update(init={k: mc_numpy(v) for k, v in init.items()},
+                      x=mc_numpy(x), out_value=mc_numpy(out),
+                      grad_values=[mc_numpy(g) for g in grads])
+    del one_out, one_grads, grads, init
+    check(max(errs) <= MP_SMALL_TOL and result["aux_rel"] <= MP_SMALL_TOL,
+          f"MoE at ep={ctx.world_size} against ep=1: {result}")
+
+    bf16 = dataclasses.replace(f32, dtype=torch.bfloat16)
+    mc_reset_peak(ctx)
+    out, aux, grads = fwd_bwd(sharded, bf16)
+    check(all(bool(torch.isfinite(t).all()) for t in (
+        out, aux, *(g.to_local() for g in grads[:-1]), grads[-1])),
+          "MoE bf16 output, aux or gradients not finite")
+    del out, grads
+    result["bf16_s"] = mc_timed(ctx, lambda: fwd_bwd(sharded, bf16),
+                                MOE_STEPS)
+    result["peak"] = mc_peak(ctx)
+    return result
+
+
+def mc_pipeline(ctx, plan):
+    """(e) ``pipeline_apply`` at pp = the world size, ``tanh(m @ w_s)``
+    stages, against the stages run in turn on this rank's card."""
+    from brpc_tpu_torch.parallel import PartitionSpec, make_mesh, \
+        pipeline_apply
+    from brpc_tpu_torch.parallel.mesh import local_block
+
+    width, rows, microbatches = plan.pipeline
+    gen = torch.Generator(ctx.device).manual_seed(2)
+    w = torch.randn((ctx.world_size, width, width), generator=gen,
+                    device=ctx.device) * width ** -0.5
+    x = torch.randn((rows, width), generator=gen, device=ctx.device)
+    mesh = make_mesh({"pp": ctx.world_size}, device_type=ctx.device_type)
+    got = pipeline_apply(lambda p, m: torch.tanh(m @ p), w, x, mesh=mesh,
+                         axis="pp", microbatches=microbatches)
+    want = x
+    for s in range(ctx.world_size):
+        want = torch.tanh(want @ w[s])
+    (err,) = mc_max_rel(ctx, [(got.to_local(), local_block(
+        want, PartitionSpec("pp"), mesh), 1.0)])
+    check(err <= MP_SMALL_TOL, f"pipeline against the stages in turn: {err}")
+    out = {"err": err}
+    if plan.keep:
+        out.update(w=mc_numpy(w), x=mc_numpy(x), out=mc_numpy(got))
+    return out
+
+
+def mc_ps(ctx, plan, table):
+    """(f) The collective PS over ``make_mesh({"ps": W})`` on ``table`` (an
+    array, or the path of one from which every rank loads its rows):
+    ``lookup`` bit-equal to the host's ``table[ids]``, ``apply_gradients``
+    to ``np.subtract.at`` in batch order on this rank's rows,
+    ``PS_TRAIN_STEPS`` train steps (finite and falling, the first against a
+    host replay within ``PS_STEP_RTOL``), one K2 and one K3 launch a call
+    on the card (the CPU runs their plain versions, which count none); then
+    the backward's K3 call against its plain version, each
+    ``CollectiveChannel`` op against its definition,
+    ``allreduce_benchmark``, the medians of ``PS_TIMED_CALLS`` calls of
+    each entry point with this card's peak, and one call of each under the
+    profiler on rank 0."""
+    from brpc_tpu_torch import ps
+    from brpc_tpu_torch.models.convert import embedding_from_reference
+    from brpc_tpu_torch.ops import embedding_rows as er
+    from brpc_tpu_torch.parallel import make_mesh
+
+    vocab, dim, k = plan.ps
+    per_call = 1 if ctx.device_type == "cuda" else 0
+    if isinstance(table, str):
+        table = np.load(table, mmap_mode="c")
+    mc_reset_peak(ctx)
+    mesh = make_mesh({"ps": ctx.world_size}, device_type=ctx.device_type)
+    emb = embedding_from_reference(table, vocab, dim, "ps", mesh)
+    lo = mesh.get_local_rank("ps") * (vocab // ctx.world_size)
+    rng = np.random.default_rng(PS_SEED + 3)
+    ids_np = zipf_ids(rng, rng.permutation(vocab), k=k).reshape(1, k)
+    grads_np = rng.standard_normal((1, k, dim)).astype(np.float32)
+    ids = torch.from_numpy(ids_np).to(ctx.device)
+    grads = torch.from_numpy(grads_np).to(ctx.device)
+    targets = torch.zeros((1, k, dim), device=ctx.device)
+    step = ps.make_ps_train_step("ps", "dp", mesh, PS_LR)
+
+    zero_counts(er.launches)
+    rows = ps.lookup(emb, ids, mesh)
+    mc_sync(ctx)
+    check(er.launches == {"gather_rows": per_call, "scatter_sub": 0},
+          f"lookup launches {er.launches}")
+    new = ps.apply_gradients(emb, ids, grads, mesh, lr=PS_LR).table
+    mc_sync(ctx)
+    check(er.launches == {"gather_rows": per_call, "scatter_sub": per_call},
+          f"apply_gradients launches {er.launches}")
+    losses, state, first = [], emb, None
+    for _ in range(PS_TRAIN_STEPS):
+        state, loss = step(state, ids, targets)
+        losses.append(loss.item())
+        if first is None:
+            first = state.table
+    out = {"launches": dict(er.launches), "losses": losses}
+    calls = per_call * (1 + PS_TRAIN_STEPS)
+    check(out["launches"] == {"gather_rows": calls, "scatter_sub": calls},
+          f"ps launches {out['launches']}")
+
+    check(rows.cpu().numpy().tobytes() == table[ids_np].tobytes(),
+          "ps.lookup differs from the host's table[ids]")
+    mine = new.to_local().cpu().numpy()
+    host = np.array(table[lo:lo + len(mine)])
+    flat = ids_np.ravel()
+    owned = (flat >= lo) & (flat < lo + len(mine))
+    np.subtract.at(host, flat[owned] - lo, np.float32(PS_LR)
+                   * grads_np.reshape(-1, dim)[owned])
+    check(mine.tobytes() == host.tobytes(),
+          "ps.apply_gradients differs from np.subtract.at")
+    del mine, host
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"ps train losses {losses}")
+    out["step_err"], out["step_differ"] = ps_step_replay(
+        table, ids_np, first.to_local().cpu().numpy(), lo)
+    if plan.keep:
+        out.update(ids=ids_np, grads=grads_np, rows=mc_numpy(rows),
+                   applied=mc_numpy(new), first=mc_numpy(first))
+    del rows, new, first, state
+    backward_against_plain(ctx, emb, ids, mesh, lo)
+    out["ops"], out["bench"] = channel_ops(mesh)
+    timed = {"lookup": lambda: ps.lookup(emb, ids, mesh),
+             "apply_gradients": lambda: ps.apply_gradients(
+                 emb, ids, grads, mesh, lr=PS_LR),
+             "train_step": lambda: step(emb, ids, targets)}
+    out["timed"] = {name: mc_timed(ctx, fn, PS_TIMED_CALLS)
+                    for name, fn in timed.items()}
+    out["peak"] = mc_peak(ctx)
+    for name, fn in timed.items():
+        mc_profile(ctx, f"ps W={ctx.world_size} {name}", fn)
+    out["distinct"] = len(np.unique(ids_np))
+    return out
+
+
+def multi_card_world(w, plan, table_path, device_type="cuda"):
+    """One world of phase 15: ``mc_rank`` on ``w`` ranks (one a card on
+    ``cuda``) within ``MC_WORLD_TIMEOUT_S``; prints what the ranks
+    measured and returns their results in rank order."""
+    from brpc_tpu_torch.parallel.mesh import run_world
+
+    t0 = time.perf_counter()
+    results = run_world(mc_rank, w, args=(plan, table_path),
+                        device_type=device_type,
+                        timeout_s=MC_WORLD_TIMEOUT_S)
+    tag = f"multi_card W={w}"
+    print(f"{tag}: world of {w} ranks on {device_type} done in "
+          f"{time.perf_counter() - t0:.3f} s; rank 0's parts: " + ", ".join(
+              f"{name} {s:.3f} s" for name, s in
+              results[0]["seconds"].items()))
+    report_model(tag, plan, results)
+    report_ps(tag, plan, results)
+    return results
+
+
+def gb_by_card(results, *keys):
+    """The peak at ``keys`` in each rank's results, in GB."""
+    out = []
+    for r in results:
+        for key in keys:
+            r = r[key]
+        out.append(round(r / 1e9, 3))
+    return out
+
+
+def report_model(tag, plan, results):
+    """Prints parts (a)-(e) of a world's ``results`` (one a rank) and holds
+    the dry run's summary line to the mesh rule."""
+    w, r0 = len(results), results[0]
+    line = r0["dryrun"]
+    print(f"{tag} (a): {line!r}")
+    check(mc_dryrun_ok(line, w), f"dry run summary {line!r} against the "
+          f"mesh rule at {w} ranks")
+    for name, _, (b, t) in plan.layouts[w]:
+        r = r0[name]
+        timed = r["step_s"][1:]
+        median = statistics.median(timed)
+        flop_share = train_flops(plan.llama, b, t) / w / PEAK_FLOPS[
+            torch.bfloat16] / median
+        print(f"{tag} (b) {name}: Llama hidden {plan.llama.hidden}, "
+              f"{plan.llama.n_layers} layers, mesh {r['mesh']} batch B={b} "
+              f"T={t}, "
+              + ("ring attention over sp with heads over tp" if r["ring"]
+                 else "dense attention on each rank's heads")
+              + "; f32 against the unsharded step on each card: loss "
+              f"{r['f32_loss']} against {r['dense_loss']} (rel "
+              f"{r['loss_rel']:.3e}), gradients' relative L2 error per leaf "
+              f"{' '.join(f'{e:.3e}' for e in r['grad_rel'])} (bound "
+              f"{MP_GRAD_REL}); f32 peak_mem_gb by card "
+              f"{gb_by_card(results, name, 'f32_peak')}")
+        print(f"{tag} (b) {name} bf16, AdamW lr {TRAIN_LR}: losses "
+              f"(warm-up first) {r['losses']}; step x{TRAIN_STEPS} ms "
+              f"median={median * 1e3:.3f} min={min(timed) * 1e3:.3f} "
+              f"max={max(timed) * 1e3:.3f} warmup={r['step_s'][0] * 1e3:.3f}"
+              f" tokens_per_s median={b * t / median:.1f} flop_share="
+              f"{flop_share:.4f} peak_mem_gb by card "
+              f"{gb_by_card(results, name, 'peak')}")
+    a = r0["attention"]
+    b, t, hq, hkv, d = plan.attention
+    print(f"{tag} (c): sp={w} B={b} T={t} Hq={hq} Hkv={hkv} D={d} f32, "
+          f"against dense attention: causal ring max |err| {a['ring']:.3e}, "
+          f"ulysses {a['ulysses']:.3e}; not causal ring "
+          f"{a['ring_full']:.3e}, ulysses {a['ulysses_full']:.3e} (bound "
+          f"{MP_ATTN_TOL}); the ring's gradient max |err| "
+          f"{a['ring_grad_abs']:.3e}, {a['ring_grad']:.3e} of its largest "
+          f"element {a['grad_largest']:.4g} (bound {MP_ATTN_TOL})")
+    m = r0["moe"]
+    med, lo_s, hi_s = m["bf16_s"]
+    hidden, intermediate, experts, tokens = plan.moe
+    print(f"{tag} (d): moe_layer hidden {hidden} intermediate "
+          f"{intermediate} {experts} experts ({experts // w} a card), "
+          f"top-1, capacity factor 2.0, {tokens} tokens; f32 ep={w} "
+          f"against ep=1: output {m['out']:.3e}, aux rel {m['aux_rel']:.3e}, "
+          f"gradients " + " ".join(f"{k} {v:.3e}"
+                                   for k, v in m["grads"].items())
+          + f" of their largest (bound {MP_SMALL_TOL}); bf16 forward+"
+          f"backward x{MOE_STEPS} ms median={med * 1e3:.3f} "
+          f"min={lo_s * 1e3:.3f} max={hi_s * 1e3:.3f} peak_mem_gb by card "
+          f"{gb_by_card(results, 'moe', 'peak')}")
+    print(f"{tag} (e): pipeline_apply pp={w} width {plan.pipeline[0]} rows "
+          f"{plan.pipeline[1]} microbatches {plan.pipeline[2]} against the "
+          f"stages in turn max |err| {r0['pipeline']['err']:.3e} (bound "
+          f"{MP_SMALL_TOL})")
+
+
+def report_ps(tag, plan, results):
+    """Prints part (f) of a world's ``results`` (one a rank); holds
+    ``allreduce_benchmark`` to a non-zero figure where the world has more
+    than one rank."""
+    w, p = len(results), results[0]["ps"]
+    vocab, dim, k = plan.ps
+    launches = {kind: sum(x["ps"]["launches"][kind] for x in results)
+                for kind in p["launches"]}
+    step_err = max(x["ps"]["step_err"] for x in results)
+    print(f"{tag} (f): ps={w}, table {vocab}x{dim} f32 ({vocab // w} rows "
+          f"a card), ids (1, {k}) Zipf({PS_ZIPF}), {p['distinct']} "
+          f"distinct, lr {PS_LR}, MSE to zero targets: lookup bit-equal to "
+          f"table[ids], apply_gradients bit-equal to np.subtract.at on every "
+          f"card; {PS_TRAIN_STEPS} train steps, losses "
+          f"{' '.join(f'{x:.9g}' for x in p['losses'])}, first step against "
+          f"the host replay max_abs_err {step_err:.3e} "
+          f"(rtol {PS_STEP_RTOL}); lookup's backward (K3 on a zero shard, "
+          f"lr -1) bit-equal to K3's plain version; launches by card "
+          f"{[x['ps']['launches'] for x in results]}, summed {launches}")
+    bench = p["bench"]
+    print(f"{tag} (f): CollectiveChannel {p['ops']} equal their definitions "
+          f"on {w} ranks; allreduce_benchmark {ALLREDUCE_MB} MB: world_size="
+          f"{bench['world_size']} devices={bench['devices']} ms="
+          f"{bench['seconds'] * 1e3:.4f} gbps_per_chip="
+          f"{bench['gbps_per_chip']:.3f} (its all-reduce carries one value "
+          f"a rank, and on one rank none: not a link speed); " + " ".join(
+              f"{name}_ms median={m * 1e3:.3f} min={lo * 1e3:.3f} "
+              f"max={hi * 1e3:.3f}" for name, (m, lo, hi) in
+              p["timed"].items()) + f" ({PS_TIMED_CALLS} calls each) "
+          f"peak_mem_gb by card {gb_by_card(results, 'ps', 'peak')}")
+    check(w == 1 or bench["gbps_per_chip"] > 0,
+          f"allreduce_benchmark on {w} ranks: {bench}")
+
+
+def phase_multi_card(table, built):
+    """Phase 15; returns the kernels' launches over it by the kernels
+    line's names (summed over the ranks and the native processes)."""
+    cards = torch.cuda.device_count()
+    worlds = [w for w in MC_WORLDS if w <= cards]
+    launches = {**{name: 0 for name in flash_counts()},
+                "gather_rows": 0, "scatter_sub": 0,
+                **{kind: 0 for kind in FABRIC_KINDS}}
+    if not worlds:
+        print(f"multi_card: not run: {cards} card, needs {MC_WORLDS[0]}")
+        return launches
+    phase_t0 = time.perf_counter()
+    plugin, programs = native_ready(built, "phases 1-14")
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="multi-card-") as tmp:
+        table_path = os.path.join(tmp, "table.npy")
+        np.save(table_path, table)
+        for w in worlds:
+            for r in multi_card_world(w, mc_plan(), table_path):
+                for kind, n in r["ps"]["launches"].items():
+                    launches[kind] += n
+            label = f"multi_card W={w} (g)"
+            report, native, _ = native_run(
+                plugin, programs, list(MC_NATIVE_PROGRAMS),
+                {"BRT_PJRT_NUM_DEVICES": str(w)}, label,
+                ["--shards", str(w)])
+            replicas = sorted({c["replicas"] for c in report["collectives"]})
+            check(report["devices"] == w and report["shards"] == w
+                  and replicas == [2 ** i for i in range(w.bit_length())],
+                  f"{label}: devices {report['devices']}, shards "
+                  f"{report['shards']}, collectives over {replicas}")
+            print(f"{label}: launches {native}")
+            for kind, n in native.items():
+                launches[kind] += n
+    print(f"multi_card: launches {launches}; phase "
+          f"{time.perf_counter() - phase_t0:.3f} s")
     return launches
 
 
 def fabric_line(fabric_rows, fabric_launches, press_launches,
-                recover_launches, native_launches):
+                recover_launches, native_launches, multi_card_launches):
     """The fabric's four rows of the kernels line."""
     source = "brpc_tpu_torch/csrc/device_programs.cu"
     lines = {"add": 54, "reduce_sum": 64, "all_reduce_sum": 76,
@@ -2703,11 +3169,13 @@ def fabric_line(fabric_rows, fabric_launches, press_launches,
         "name": kind, "route": "cuda", "source": source,
         "replaces": f"cpp/device/pjrt_executable.cc:{lines[kind]}",
         "design": designs[kind],
-        "launches": fabric_launches[kind] + native_launches[kind],
+        "launches": fabric_launches[kind] + native_launches[kind]
+        + multi_card_launches[kind],
         "launches_by_path": {"device_fabric": fabric_launches[kind],
                              "press": press_launches[kind],
                              "ps_recover": recover_launches[kind],
-                             "native_device": native_launches[kind]},
+                             "native_device": native_launches[kind],
+                             "multi_card": multi_card_launches[kind]},
         **fabric_rows[kind]} for kind in FABRIC_KINDS]
 
 
@@ -2733,17 +3201,18 @@ def main() -> int:
     phase_tiny_train()
     dense_loss = phase_train()
     ps_launches = phase_ps_serve(table)
-    collective = phase_ps_collective(table, card)
-    model_parallel = phase_model_parallel(card, dense_loss)
+    collective = phase_ps_collective(table)
+    model_parallel = phase_model_parallel(dense_loss)
     fabric, fabric_rows = phase_device_fabric()
     pressed = phase_press(table)
     recovered = phase_ps_recover(table)
     native = phase_native_device(native_build)
+    multi_card = phase_multi_card(table, native_build)
 
     b, t = REQUESTS[0]
     k1_paths = {"tiny": tiny, **served, "model_parallel": model_parallel,
                 "device_fabric": fabric, "press": pressed,
-                "ps_recover": recovered}
+                "ps_recover": recovered, "multi_card": multi_card}
     k1_main = {"flash_attention": ("serve", torch.bfloat16,
                                    "wgmma+tma, split-p"),
                "flash_attention_f32": ("serve_f32", torch.float32,
@@ -2764,14 +3233,15 @@ def main() -> int:
         "design": "StableHLO device program, not Pallas; a block per id",
         "launches": ps_launches["gather_rows"] + collective["gather_rows"]
         + pressed["gather_rows"] + recovered["gather_rows"]
-        + native["gather_rows"],
+        + native["gather_rows"] + multi_card["gather_rows"],
         "launches_by_path": {"ps_serve": ps_launches["gather_rows"],
                              "ps_collective": collective["gather_rows"],
                              "model_parallel": model_parallel["gather_rows"],
                              "device_fabric": fabric["gather_rows"],
                              "press": pressed["gather_rows"],
                              "ps_recover": recovered["gather_rows"],
-                             "native_device": native["gather_rows"]},
+                             "native_device": native["gather_rows"],
+                             "multi_card": multi_card["gather_rows"]},
         **ps_rows["gather_rows"]}, {
         "name": "scatter_sub", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:121",
@@ -2780,16 +3250,18 @@ def main() -> int:
                   "tile in shared memory",
         "launches": ps_launches["scatter_sub"] + collective["scatter_sub"]
         + pressed["scatter_sub"] + recovered["scatter_sub"]
-        + native["scatter_sub"],
+        + native["scatter_sub"] + multi_card["scatter_sub"],
         "launches_by_path": {"ps_serve": ps_launches["scatter_sub"],
                              "ps_collective": collective["scatter_sub"],
                              "model_parallel": model_parallel["scatter_sub"],
                              "device_fabric": fabric["scatter_sub"],
                              "press": pressed["scatter_sub"],
                              "ps_recover": recovered["scatter_sub"],
-                             "native_device": native["scatter_sub"]},
+                             "native_device": native["scatter_sub"],
+                             "multi_card": multi_card["scatter_sub"]},
         **ps_rows["scatter_sub"]},
-        *fabric_line(fabric_rows, fabric, pressed, recovered, native)]}))
+        *fabric_line(fabric_rows, fabric, pressed, recovered, native,
+                     multi_card)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,15 @@
 """A gloo world of processes on the CPU for the port's collective tests.
 
-``run(program, world, workdir)`` starts ``world`` processes of this file.
-Each joins one default process group through a ``FileStore`` in
-``workdir`` (no TCP port, so parallel test workers never collide), runs
+``run(program, world, workdir)`` starts a world of ``world`` ranks with
+``brpc_tpu_torch.parallel.mesh.run_world`` (spawned processes that meet
+through a ``FileStore``, all stopped and the unfinished named when one
+fails or the world runs over ``TIMEOUT_S``). Each rank runs
 ``PROGRAMS[program](rank, inputs)`` with the arrays of
-``workdir/inputs.npz`` (if the test wrote one), and saves the dict of numpy
-arrays it returns to ``workdir/rank<r>.npz``. ``run`` returns those dicts,
-one per rank, in rank order. The ranks import ``torch`` and the port, never
-``jax`` or ``brpc_tpu``: the tests hold their results against the
-reference's functions in the test process.
+``workdir/inputs.npz`` (if the test wrote one) and returns the dict it
+gives as numpy arrays; ``run`` returns those dicts, one per rank, in rank
+order. The ranks import ``torch`` and the port, never ``jax`` or
+``brpc_tpu``: the tests hold their results against the reference's
+functions in the test process.
 
 Inputs that need no reference (fixed aranges, seeded numpy draws) are made
 here by functions both sides call.
@@ -17,43 +18,33 @@ here by functions both sides call.
 from __future__ import annotations
 
 import os
-import subprocess
-import sys
 import time
 from pathlib import Path
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent.parent
 TIMEOUT_S = 240
 
 
 def run(program: str, world: int, workdir: Path) -> list:
-    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, program, str(rank), str(world),
-         str(workdir)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for rank in range(world)]
-    deadline = time.monotonic() + TIMEOUT_S
-    outs = []
-    try:
-        for p in procs:
-            left = max(deadline - time.monotonic(), 1.0)
-            outs.append(p.communicate(timeout=left)[0])
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    failed = [(r, p.returncode, out) for r, (p, out)
-              in enumerate(zip(procs, outs)) if p.returncode != 0]
-    if failed:
-        raise RuntimeError("\n".join(
-            f"rank {r} exited {rc}:\n{out[-3000:]}" for r, rc, out in failed))
-    results = []
-    for rank in range(world):
-        with np.load(workdir / f"rank{rank}.npz") as f:
-            results.append({k: f[k] for k in f.files})
-    return results
+    from brpc_tpu_torch.parallel.mesh import run_world
+
+    return run_world(_rank_program, world, args=(program, str(workdir)),
+                     device_type="cpu", timeout_s=TIMEOUT_S)
+
+
+def _rank_program(ctx, program: str, workdir: str) -> dict:
+    import torch
+
+    inputs = {}
+    path = Path(workdir) / "inputs.npz"
+    if path.exists():
+        with np.load(path) as f:
+            inputs = {k: f[k] for k in f.files}
+    ctx.part(program)
+    out = PROGRAMS[program](ctx.rank, inputs)
+    return {k: np.asarray(v.detach().numpy() if isinstance(v, torch.Tensor)
+                          else v) for k, v in out.items()}
 
 
 # -- inputs both sides make ---------------------------------------------------
@@ -87,6 +78,64 @@ def shard_inputs() -> dict:
     batch = rng.standard_normal((8, 6)).astype(np.float32)
     return {"params": params, "specs": specs, "batch": batch,
             "batch_spec": ("dp", None)}
+
+
+def multicard_plan():
+    """``chip_smoke.py`` phase 15's plan at the tiny widths: the tiny Llama
+    (vocab 256; sequences of 32), Llama's head ratio at 8/4 heads of 8
+    (Ulysses splits the KV heads over 4), MoE at hidden 64 with 8
+    experts, a 1024 x 64 table with 128 ids a call. ``keep``: each rank
+    returns its parts' inputs and whole results."""
+    import chip_smoke
+    from brpc_tpu_torch.models.llama import LlamaConfig
+
+    return chip_smoke.MultiCardPlan(
+        llama=LlamaConfig.tiny(vocab_size=256),
+        layouts={1: (("tp1_sp1", {"tp": 1, "sp": 1}, (1, 32)),),
+                 2: (("sp2", {"sp": 2}, (1, 32)),),
+                 4: (("tp2_sp2", {"tp": 2, "sp": 2}, (1, 32)),
+                     ("dp2_tp2", {"dp": 2, "tp": 2}, (2, 32)))},
+        attention=(1, 64, 8, 4, 8), moe=(64, 128, 8, 32),
+        pipeline=(16, 16, 8), ps=(1024, 64, 128), keep=True)
+
+
+def multicard_table() -> np.ndarray:
+    """The PS table of ``multicard_plan``, drawn as ``chip_smoke`` draws
+    the full one."""
+    vocab, dim, _ = multicard_plan().ps
+    return (np.random.default_rng(0).standard_normal((vocab, dim))
+            * 0.02).astype(np.float32)
+
+
+def run_multicard(world: int, workdir: Path, device_type: str) -> list:
+    """Phase 15's world (``chip_smoke.multi_card_world``: the rank program
+    of the chip run, its checks included) at ``multicard_plan``'s widths on
+    ``world`` ranks: gloo on ``cpu``, one NCCL rank a card on ``cuda``.
+    Returns each rank's results."""
+    import chip_smoke
+
+    np.save(workdir / "table.npy", multicard_table())
+    return chip_smoke.multi_card_world(world, multicard_plan(),
+                                       str(workdir / "table.npy"),
+                                       device_type)
+
+
+def stuck_body(ctx, pid_dir: str, how: str) -> None:
+    """A rank body for ``parallel.mesh.run_world``'s failure tests: each
+    rank writes its pid to ``pid_dir``; then rank 0 enters an all-reduce
+    while rank 1 enters no collective (``how="hang"``: it sleeps) or
+    raises (``how="raise"``)."""
+    import torch
+    import torch.distributed as dist
+
+    (Path(pid_dir) / f"{ctx.rank}.pid").write_text(str(os.getpid()))
+    if ctx.rank == 1:
+        ctx.part(f"rank 1 {how}s")
+        if how == "raise":
+            raise ValueError("rank 1 raised")
+        time.sleep(3600)
+    ctx.part("all_reduce")
+    dist.all_reduce(torch.ones(4))
 
 
 # -- rank programs -------------------------------------------------------------
@@ -506,30 +555,3 @@ def _obs_counters(rank: int, inputs: dict) -> dict:
 PROGRAMS = {"parallel": _parallel, "ps": _ps,
             "sharded_train": _sharded_train, "ring": _ring, "moe": _moe,
             "pipeline": _pipeline, "obs_counters": _obs_counters}
-
-
-def _main(program: str, rank: int, world: int, workdir: str) -> None:
-    import torch
-    import torch.distributed as dist
-
-    from brpc_tpu_torch.parallel import init_world
-
-    torch.set_num_threads(1)
-    workdir = Path(workdir)
-    inputs = {}
-    if (workdir / "inputs.npz").exists():
-        with np.load(workdir / "inputs.npz") as f:
-            inputs = {k: f[k] for k in f.files}
-    init_world(str(workdir), rank, world, device_type="cpu")
-    try:
-        out = PROGRAMS[program](rank, inputs)
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
-    np.savez(workdir / f"rank{rank}.npz", **{
-        k: v.detach().numpy() if isinstance(v, torch.Tensor) else v
-        for k, v in out.items()})
-
-
-if __name__ == "__main__":
-    _main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -152,6 +152,9 @@ def rowpar() -> dict:
 
 
 def _rank(rank: int, tp: int, store: str, root) -> None:
+    # Not ``parallel.mesh.run_world``: with ``--root`` the ranks import
+    # another tree's package, which may predate that launcher (or differ
+    # in it), so this script starts its own ranks.
     if root:
         sys.path.insert(0, root)
     import torch.distributed as dist
