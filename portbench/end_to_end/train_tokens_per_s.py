@@ -1,0 +1,5 @@
+"""Tokens of every step the window completed, over the window's seconds."""
+
+
+def read(w):
+    return sum(u["b"] * u["t"] for u in w.units) / w.window_s
