@@ -17,6 +17,13 @@ give the same logits:
 when serving. That kernel is forward only, as the reference's is, so
 ``make_train_step`` trains with dense attention (``attn_fn=None``).
 
+While the program is traced (``obs.rpcz.trace``: a ``torch.profiler``
+session runs), ``forward`` records the span ``llama.forward`` and, one a
+layer and one for the final norm and the LM head, ``llama.cast`` around
+the weights' casts with their ``kernels`` and ``bytes`` counted;
+``make_train_step``'s step records ``train.forward``, ``train.backward``
+and ``train.optimizer``. Each marks its interval on the device.
+
 The same body runs one rank's share of a model sharded over a (dp, tp,
 sp) mesh (``forward``'s ``ranks``): its collectives are the identity
 where the group has one rank.
@@ -33,6 +40,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
+from brpc_tpu_torch.obs import rpcz
 from brpc_tpu_torch.parallel import functional as pf
 from brpc_tpu_torch.parallel.mesh import PartitionSpec as P, Ranks
 from brpc_tpu_torch.utils.tree import tree_map
@@ -222,6 +230,24 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     of the sequence (its positions start at ``sp_index·T``), and the
     logits its rows, whole over the vocabulary.
     """
+    with rpcz.trace("llama", "forward", mark=tokens):
+        return _forward(params, tokens, cfg, attn_fn, ranks)
+
+
+def _count_casts(sp, ws, dtype: torch.dtype) -> None:
+    """Counts on the span ``sp`` (None while untraced) the casts of ``ws``
+    to ``dtype``: a kernel each, and the bytes it moves, each element read
+    once and written once. A tensor already in ``dtype`` is not copied."""
+    if sp is None:
+        return
+    cast = [w for w in ws if w.dtype != dtype]
+    sp.count("kernels", len(cast))
+    sp.count("bytes", sum(w.numel() * (w.element_size() + dtype.itemsize)
+                          for w in cast))
+
+
+def _forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+             attn_fn: Optional[AttnFn], ranks: Ranks) -> torch.Tensor:
     x = _embed(params["embed"], _clamped_ids(tokens, cfg.vocab_size),
                ranks).to(cfg.dtype)
     b, t = tokens.shape
@@ -232,10 +258,16 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     # whole stack for every layer.
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
     for i in range(cfg.n_layers):
-        lp = {name: ws[i].to(cfg.dtype) for name, ws in layers.items()}
+        with rpcz.trace("llama", "cast", mark=tokens) as sp:
+            lp = {name: ws[i].to(cfg.dtype) for name, ws in layers.items()}
+            _count_casts(sp, [ws[i] for ws in layers.values()], cfg.dtype)
         x = _layer(cfg, x, lp, positions, attn_fn, ranks.tp)
-    x = rms_norm(x, params["final_norm"].to(cfg.dtype), cfg.norm_eps)
-    head = pf.copy_to(x, ranks.tp) @ params["lm_head"].to(cfg.dtype)
+    tail = [params["final_norm"], params["lm_head"]]
+    with rpcz.trace("llama", "cast", mark=tokens) as sp:
+        norm, head_w = (w.to(cfg.dtype) for w in tail)
+        _count_casts(sp, tail, cfg.dtype)
+    x = rms_norm(x, norm, cfg.norm_eps)
+    head = pf.copy_to(x, ranks.tp) @ head_w
     return pf.gather_from(head, ranks.tp).float()
 
 
@@ -325,9 +357,12 @@ def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
                 loss = tensor_parallel.loss_and_grads(params, tokens, cfg,
                                                       attn_fn)
             else:
-                loss = loss_fn(params, tokens, cfg, attn_fn)
-                loss.backward()
-            optimizer.step()
+                with rpcz.trace("train", "forward", mark=tokens):
+                    loss = loss_fn(params, tokens, cfg, attn_fn)
+                with rpcz.trace("train", "backward", mark=tokens):
+                    loss.backward()
+            with rpcz.trace("train", "optimizer", mark=tokens):
+                optimizer.step()
         finally:
             optimizer.zero_grad(set_to_none=True)
         return loss.detach()

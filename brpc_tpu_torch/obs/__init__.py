@@ -7,23 +7,34 @@ Two layers, both pure Python/numpy (no native build required):
   ``PerSecond`` time-windowed views, ``LatencyRecorder`` (count/qps/avg +
   log-bucket percentiles), and a global ``Registry`` behind
   ``expose`` / ``dump_exposed`` (the /vars page).
-- :mod:`brpc_tpu_torch.obs.rpcz` — per-call ``Span`` records in a bounded ring
-  (``dump_rpcz``, the /rpcz page) plus a ``span(...)`` context manager
-  for user code.
+- :mod:`brpc_tpu_torch.obs.rpcz` — the port's one span system: per-call
+  ``Span`` records (trace, span and parent ids, named ``counts``, stamps
+  on ``clock_ns()``, the profiler's real-time clock) in a bounded ring
+  (``dump_rpcz``, the /rpcz page), a ``span(...)`` context manager for
+  user code, and ``rpcz.trace(...)`` for the model path.
 
 The RPC/PS fabric (``brpc_tpu_torch.rpc``, ``brpc_tpu_torch.ps_remote``,
-``brpc_tpu.parallel.collective_channel``) is instrumented through the
+``brpc_tpu_torch.parallel.collective_channel``) is instrumented through the
 cached helpers here (:func:`recorder`, :func:`counter`); every hook
 checks :func:`enabled` first and degrades to a no-op when observability
 is switched off (``set_enabled(False)`` or env
 ``BRPC_TPU_OBS=0``).  ``Server.add_status_service()`` serves both dumps
 over the RPC fabric itself so a remote ``Channel`` can scrape any node
 (:mod:`brpc_tpu_torch.obs.status_service`).
+
+The switch lives in :mod:`~brpc_tpu_torch.obs.rpcz`, re-exported here.
+The model path (``models/llama.py``: ``llama.forward``, ``llama.cast``,
+``train.forward`` / ``backward`` / ``optimizer``) has a second gate: its
+spans are recorded only while a ``torch.profiler`` session runs in the
+process and :func:`enabled` holds.  Otherwise each of its hooks reads two
+flags and makes nothing.  While the profiler runs, every span also goes to an
+unbounded capture store beside the lossy ring, which
+``rpcz.captured(start_ns, end_ns, kernels)`` returns, marked spans with
+their interval on the device (``rpcz`` says how).
 """
 
 from __future__ import annotations
 
-import os
 from typing import Callable, Dict, Tuple
 
 from brpc_tpu_torch.analysis.race import checked_lock
@@ -49,7 +60,10 @@ from brpc_tpu_torch.obs.rpcz import (  # noqa: F401
     default_ring,
     dump_rpcz,
     format_rpcz,
+    clock_ns,
+    enabled,
     record_span,
+    set_enabled,
     span,
 )
 
@@ -60,25 +74,11 @@ __all__ = [
     "expose", "dump_exposed", "dump_exposed_dict",
     # rpcz
     "Span", "SpanRing", "default_ring", "dump_rpcz", "format_rpcz",
-    "record_span", "span",
+    "record_span", "span", "clock_ns",
     # gate + cached fabric helpers
     "enabled", "set_enabled", "recorder", "counter", "maxer", "gauge",
     "drop_var", "reset_fabric_vars",
 ]
-
-_enabled = os.environ.get("BRPC_TPU_OBS", "1") not in ("0", "false", "off")
-
-
-def enabled() -> bool:
-    return _enabled
-
-
-def set_enabled(on: bool) -> None:
-    """Global observability switch; instrumentation hooks become no-ops
-    when off (they check this before touching any recorder)."""
-    global _enabled
-    _enabled = bool(on)
-
 
 # Cached, auto-exposed fabric variables.  Instrumented call sites resolve
 # their recorder by name on every call; the dict hit is the steady-state

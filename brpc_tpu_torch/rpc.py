@@ -1055,8 +1055,9 @@ def _record_server_call(service: str, method: str, t0: int, wall: float,
                         req_len: int, rsp_len: int,
                         error: Optional[str],
                         error_code: int = 2001) -> None:
-    end = time.monotonic_ns()
-    obs.recorder(f"rpc_server_{service}_{method}").record((end - t0) / 1e9)
+    elapsed = time.monotonic_ns() - t0
+    end = obs.clock_ns()
+    obs.recorder(f"rpc_server_{service}_{method}").record(elapsed / 1e9)
     obs.counter("rpc_server_in_bytes").add(req_len)
     obs.counter("rpc_server_out_bytes").add(rsp_len)
     if error is not None:
@@ -1064,8 +1065,8 @@ def _record_server_call(service: str, method: str, t0: int, wall: float,
     tag = _SHED_TAGS.get(error_code) if error is not None else None
     obs.record_span(obs.Span(
         service=service, method=method, side="server",
-        request_bytes=req_len, response_bytes=rsp_len, start_ns=t0,
-        end_ns=end, wall_time=wall,
+        request_bytes=req_len, response_bytes=rsp_len,
+        start_ns=end - elapsed, end_ns=end, wall_time=wall,
         error_code=error_code if error else 0,
         error_text=error or "",
         annotations=[tag] if tag else []))
@@ -1083,16 +1084,18 @@ def _record_client_call(service: str, method: str, peer: str, t0: int,
                         wall: float, req_len: int, rsp_len: int,
                         error_code: int, error_text: str,
                         tag: Optional[str] = None) -> None:
-    end = time.monotonic_ns()
-    obs.recorder(f"rpc_client_{service}_{method}").record((end - t0) / 1e9)
+    elapsed = time.monotonic_ns() - t0
+    end = obs.clock_ns()
+    obs.recorder(f"rpc_client_{service}_{method}").record(elapsed / 1e9)
     obs.counter("rpc_client_out_bytes").add(req_len)
     obs.counter("rpc_client_in_bytes").add(rsp_len)
     if error_code:
         obs.counter("rpc_client_errors").add(1)
     obs.record_span(obs.Span(
         service=service, method=method, side="client", peer=peer,
-        request_bytes=req_len, response_bytes=rsp_len, start_ns=t0,
-        end_ns=end, wall_time=wall, error_code=error_code,
+        request_bytes=req_len, response_bytes=rsp_len,
+        start_ns=end - elapsed, end_ns=end, wall_time=wall,
+        error_code=error_code,
         error_text=error_text,
         annotations=[tag] if tag else []))
 

@@ -1,0 +1,360 @@
+"""The port's spans: ``obs.rpcz`` ids, clock and capture store, and the
+model path's spans (``llama.forward``, ``llama.cast``, ``train.*``).
+
+Every case but the last runs on the CPU with ``torch.profiler`` started
+for CPU activity; the last (``cuda``) holds the cast spans to the weight
+casts' kernels on the card.
+"""
+
+import dataclasses
+import math
+import time
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from brpc_tpu_torch import obs, optim
+from brpc_tpu_torch.models import llama
+from brpc_tpu_torch.obs import rpcz
+
+
+def _model_and_tokens(device="cpu", seed=0):
+    cfg = llama.LlamaConfig.tiny()
+    g = torch.Generator(device=device).manual_seed(seed)
+    params = llama.init_params(cfg, generator=g, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                           device=device)
+    return cfg, params, tokens
+
+
+def _traced(fn):
+    """``fn()`` under the profiler; (its result, the spans captured, the
+    host clock before and after)."""
+    rpcz.clear()
+    start = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    end = time.time_ns()
+    return out, rpcz.captured(start, end), start, end
+
+
+def _train_step(cfg, params):
+    params = llama.trainable(params)
+    opt = optim.adamw(params, 1e-3)
+    return params, llama.make_train_step(cfg, opt)
+
+
+@pytest.fixture(autouse=True)
+def _clean_rpcz():
+    rpcz.clear()
+    yield
+    rpcz.clear()
+
+
+def test_untraced_model_path_makes_no_span_and_launches_nothing(
+        monkeypatch):
+    made = []
+
+    class Counted(rpcz.Span):
+        def __post_init__(self):
+            made.append(self)
+
+    monkeypatch.setattr(rpcz, "Span", Counted)
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda *a, **k: made.append("marker kernel"))
+    cfg, params, tokens = _model_and_tokens()
+    ring = len(rpcz.default_ring())
+    llama.LlamaModel(cfg, params)(tokens)
+    params, step = _train_step(cfg, params)
+    step(params, tokens)
+    assert made == []
+    assert len(rpcz.default_ring()) == ring
+    assert rpcz._capture is None and rpcz.captured() == []
+
+
+def test_observability_off_records_nothing_under_the_profiler():
+    cfg, params, tokens = _model_and_tokens()
+    obs.set_enabled(False)
+    try:
+        _, spans, _, _ = _traced(lambda: llama.LlamaModel(cfg, params)(
+            tokens))
+    finally:
+        obs.set_enabled(True)
+    assert spans == []
+
+
+def test_forward_records_its_span_and_one_cast_span_a_layer_and_the_head():
+    cfg, params, tokens = _model_and_tokens()
+    _, spans, start, end = _traced(lambda: llama.LlamaModel(cfg, params)(
+        tokens))
+    forward = [s for s in spans if s.name == "llama.forward"]
+    casts = [s for s in spans if s.name == "llama.cast"]
+    assert len(forward) == 1 and len(spans) == cfg.n_layers + 2
+    root = forward[0]
+    assert root.parent_id == 0 and root.trace_id != root.span_id
+    assert len(casts) == cfg.n_layers + 1
+    for s in casts:
+        assert (s.trace_id, s.parent_id) == (root.trace_id, root.span_id)
+        assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+    assert start <= root.start_ns <= root.end_ns <= end
+    assert len({s.span_id for s in spans}) == len(spans)
+    # every weight but the embedding is cast, 4 bytes read and 2 written
+    shapes = llama.param_shapes(cfg)
+    cast = [*shapes["layers"].values(), shapes["final_norm"],
+            shapes["lm_head"]]
+    assert sum(s.counts["bytes"] for s in casts) == \
+        6 * sum(math.prod(shape) for shape in cast)
+    assert [s.counts["bytes"] for s in casts[:-1]] == \
+        [casts[0].counts["bytes"]] * cfg.n_layers
+    assert [s.counts["kernels"] for s in casts] == [9] * cfg.n_layers + [2]
+    assert all(s.device is None and s.device_start_ns is None
+               for s in spans)  # no device interval on the CPU
+
+
+def test_train_step_holds_forward_backward_and_optimizer_in_order():
+    cfg, params, tokens = _model_and_tokens()
+    params, step = _train_step(cfg, params)
+    _, spans, _, _ = _traced(lambda: step(params, tokens))
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s.name, []).append(s)
+    assert set(by_name) == {"train.forward", "train.backward",
+                            "train.optimizer", "llama.forward",
+                            "llama.cast"}
+    phases = [by_name[f"train.{p}"][0]
+              for p in ("forward", "backward", "optimizer")]
+    assert all(len(by_name[s.name]) == 1 for s in phases)
+    assert all(s.parent_id == 0 for s in phases)
+    assert len({s.trace_id for s in phases}) == 3
+    edges = []
+    for s in phases:
+        edges += [s.start_ns, s.end_ns]
+    assert edges == sorted(edges)
+    (forward,) = by_name["llama.forward"]
+    assert (forward.trace_id, forward.parent_id) == (phases[0].trace_id,
+                                                     phases[0].span_id)
+    assert phases[0].start_ns <= forward.start_ns <= forward.end_ns \
+        <= phases[0].end_ns
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tracing_changes_no_result(dtype):
+    cfg, params, tokens = _model_and_tokens()
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    runs = []
+    for traced in (False, True):
+        fresh = llama.trainable(
+            {"embed": params["embed"].clone(),
+             "layers": {k: v.clone() for k, v in params["layers"].items()},
+             "final_norm": params["final_norm"].clone(),
+             "lm_head": params["lm_head"].clone()})
+        step = llama.make_train_step(cfg, optim.adamw(fresh, 1e-3))
+
+        def work(p=fresh, step=step):
+            with torch.no_grad():
+                logits = llama.forward(p, tokens, cfg)
+            return logits, step(p, tokens), p
+
+        if traced:
+            (logits, loss, after), spans, _, _ = _traced(work)
+            assert spans
+        else:
+            logits, loss, after = work()
+        runs.append((logits, loss, after))
+    (l0, loss0, p0), (l1, loss1, p1) = runs
+    assert torch.equal(l0, l1) and torch.equal(loss0, loss1)
+    for name in ("embed", "final_norm", "lm_head"):
+        assert torch.equal(p0[name], p1[name])
+    for name, w in p0["layers"].items():
+        assert torch.equal(w, p1["layers"][name])
+
+
+def test_the_capture_keeps_every_span_while_the_ring_stays_bounded():
+    n = rpcz.DEFAULT_CAPACITY + 500
+
+    def work():
+        for i in range(n):
+            with rpcz.trace("work", f"m{i}"):
+                pass
+        with obs.span("user", "outer"):
+            pass
+
+    _, spans, _, _ = _traced(work)
+    assert [s.method for s in spans] == [f"m{i}" for i in range(n)] \
+        + ["outer"]
+    assert len(rpcz.default_ring()) == rpcz.default_ring().capacity
+    # read again: the same spans; the next traced span opens a new capture
+    assert len(rpcz.captured()) == n + 1
+    _, again, _, _ = _traced(work)
+    assert len(again) == n + 1 and again[0] is not spans[0]
+
+
+def test_user_and_rpc_spans_stamp_the_profiler_clock_with_ids():
+    from brpc_tpu_torch import rpc
+
+    assert rpcz.clock_ns is time.time_ns
+    before = time.time_ns()
+    with obs.span("User", "outer") as outer:
+        t0 = time.monotonic_ns()
+        time.sleep(0.002)
+        rpc._record_client_call("Echo", "Echo", "peer", t0, time.time(), 3,
+                                4, 0, "")
+    rpc._record_server_call("Echo", "Echo", t0, time.time(), 3, 4, None)
+    after = time.time_ns()
+    spans = list(rpcz.default_ring()._ring)[-3:]
+    client, user, server = spans
+    assert (client.side, user.side, server.side) == ("client", "user",
+                                                     "server")
+    for s in spans:
+        assert before <= s.start_ns <= s.end_ns <= after
+        assert s.end_ns - s.start_ns >= 2_000_000 or s is server
+    assert (client.trace_id, client.parent_id) == (outer.trace_id,
+                                                   outer.span_id)
+    assert user.parent_id == 0 and server.parent_id == 0
+    assert server.trace_id not in (user.trace_id, client.trace_id)
+    assert rpcz.dump_rpcz(limit=1)[0].keys() == {
+        "service", "method", "side", "peer", "request_bytes",
+        "response_bytes", "start_ns", "end_ns", "wall_time", "latency_us",
+        "error_code", "error_text", "annotations"}
+
+
+class _Marked:
+    """Stands for a tensor on a CUDA device."""
+
+    is_cuda = True
+
+
+def test_marked_spans_lie_between_their_marker_kernels(monkeypatch):
+    launched, device = [], [0]
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: device[0])
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda cycles: launched.append((device[0], cycles)))
+
+    def work():
+        with rpcz.trace("llama", "forward", mark=_Marked()):
+            for n in (1, 0):
+                # counts the kernels it launches: no marker at its end
+                with rpcz.trace("llama", "cast", mark=_Marked()) as sp:
+                    sp.count("kernels", n)
+        device[0] = 1
+        with rpcz.trace("train", "optimizer", mark=_Marked()):
+            pass
+        with rpcz.trace("train", "step"):  # unmarked: launches nothing
+            pass
+
+    _, spans, start, end = _traced(work)
+    assert launched == [(0, 0)] * 4 + [(1, 0)] * 2
+    # the trace: markers (spin_kernel) interleaved with the work, in the
+    # order of launch, plus a kernel on card 1 between its two markers;
+    # the device ran them after the host launched them all
+    us = 1000
+
+    def at(t):
+        return end + t * us
+
+    marker = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+    kernels = [(0, marker, at(0), at(2)), (0, marker, at(10), at(12)),
+               (0, "copy", at(12), at(20)), (0, marker, at(30), at(32)),
+               (0, "add", at(50), at(60)), (0, marker, at(60), at(62)),
+               (1, marker, at(5), at(6)), (1, "adam", at(6), at(9)),
+               (1, marker, at(9), at(10))]
+    got = {s.span_id: s for s in rpcz.captured(start, end, kernels)}
+    cast1, cast2, forward, opt, step = [got[s.span_id] for s in spans]
+    assert (forward.name, cast1.name, opt.name, step.name) == (
+        "llama.forward", "llama.cast", "train.optimizer", "train.step")
+    assert (forward.device_start_ns, forward.device_end_ns) == (at(2),
+                                                                at(60))
+    assert (cast1.device_start_ns, cast1.device_end_ns) == (at(12), at(20))
+    assert (cast2.device_start_ns, cast2.device_end_ns) == (at(32), at(32))
+    assert (opt.device, opt.device_start_ns, opt.device_end_ns) == (
+        1, at(6), at(9))
+    assert step.device is None and step.device_start_ns is None
+    # the profiler lost card 0's first marker: the markers found line up
+    # with the last launches, and the forward, which began at the lost
+    # one, gets no interval
+    rpcz.captured(start, end, kernels[1:])
+    assert forward.device_start_ns is None
+    assert (cast1.device_start_ns, cast1.device_end_ns) == (at(12), at(20))
+    # a counted span whose kernels run into the next marker gets none
+    rpcz.captured(start, end, kernels[:2] + kernels[3:])
+    assert cast1.device_start_ns is None
+    assert (cast2.device_start_ns, forward.device_end_ns) == (at(32),
+                                                              at(60))
+    # a marker the program did not launch: card 0 gets nothing
+    rpcz.captured(start, end, kernels + [(0, marker, at(70), at(71))])
+    assert cast1.device_start_ns is None and cast2.device_end_ns is None
+    assert opt.device_start_ns == at(6)
+
+
+def cast_kernels(model, tokens):
+    """One traced forward of ``model`` on the card under the profiler (CPU
+    and CUDA, shapes recorded). Returns the number of device operations
+    that belong to each ``llama.cast`` span in order (midpoint in its
+    device interval, markers aside), those among them that are not weight
+    casts, and the weight casts that belong to none. A weight cast is a
+    kernel launched by an f32 → bf16 ``aten::copy_`` of a tensor of at
+    most two dimensions: weights are [in, out] or [h], activations have
+    three or more."""
+    from torch.autograd import DeviceType
+
+    rpcz.clear()
+    torch.cuda.synchronize()
+    start = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        with torch.inference_mode():
+            model(tokens)
+        torch.cuda.synchronize()
+    end = time.time_ns()
+    events = list(prof.profiler.kineto_results.events())
+    device = [e for e in events if e.device_type() == DeviceType.CUDA
+              and not e.is_user_annotation()]
+    casts = [s for s in rpcz.captured(start, end, [
+        (e.device_index(), e.name(), e.start_ns(), e.end_ns())
+        for e in device]) if s.name == "llama.cast"]
+    # the ops' ids: CUDA runtime calls carry ids of another numbering
+    ops = {e.correlation_id(): e for e in events
+           if e.device_type() == DeviceType.CPU
+           and e.name().startswith("aten::")}
+
+    def op_of(e):
+        op = ops.get(e.linked_correlation_id())
+        return None if op is None else (op.name(), list(op.dtypes()[:2]),
+                                        [list(x) for x in op.shapes()[:2]])
+
+    def weight_cast(op):
+        return op is not None and op[0] == "aten::copy_" \
+            and op[1] == ["c10::BFloat16", "float"] and len(op[2][1]) <= 2
+
+    counts, foreign, outside = [0] * len(casts), [], []
+    for e in device:
+        if rpcz.is_marker(e.name()):
+            continue
+        mid = (e.start_ns() + e.end_ns()) / 2
+        owner = [i for i, s in enumerate(casts)
+                 if s.device_start_ns is not None
+                 and s.device_start_ns <= mid <= s.device_end_ns]
+        op = op_of(e)
+        for i in owner:
+            counts[i] += 1
+            if not weight_cast(op):
+                foreign.append((i, e.name()[:80], op))
+        if not owner and weight_cast(op):
+            outside.append((e.name()[:80], op))
+    return counts, foreign, outside
+
+
+@pytest.mark.cuda
+def test_cast_spans_hold_the_weight_casts_and_nothing_else_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from brpc_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg, params, tokens = _model_and_tokens("cuda")
+    model = llama.LlamaModel(cfg, params, attn_fn=flash_attention)
+    with torch.inference_mode():
+        model(tokens)  # builds and loads the kernel
+    counts, foreign, outside = cast_kernels(model, tokens)
+    assert counts == [9] * cfg.n_layers + [2]
+    assert foreign == [] and outside == []
