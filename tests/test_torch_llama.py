@@ -27,6 +27,7 @@ from brpc_tpu.ops import flash_attention as ref_flash
 from brpc_tpu_torch.models import llama
 from brpc_tpu_torch.models.convert import params_from_jax
 from brpc_tpu_torch.ops import flash_attention as fa
+from brpc_tpu_torch.utils.tree import tree_map
 
 _DTYPES = {"f32": (jnp.float32, torch.float32, 1e-4, 1e-4),
            "bf16": (jnp.bfloat16, torch.bfloat16, 0.1, 0.0)}
@@ -222,4 +223,65 @@ def test_llama_model_serves_forward():
     tokens = torch.from_numpy(_tokens((1, 32), seed=2))
     torch.testing.assert_close(
         model(tokens), llama.forward(params, tokens, cfg, fa.flash_attention),
+        rtol=0, atol=0)
+
+
+def test_llama_model_holds_its_weights_in_the_compute_dtype():
+    cfg = llama.LlamaConfig.tiny()
+    params = _port_params()
+    model = llama.LlamaModel(cfg, params, attn_fn=fa.flash_attention)
+    assert all(w.dtype == torch.bfloat16 for w in model.layers.values())
+    assert (model.final_norm.dtype, model.lm_head.dtype) == (
+        torch.bfloat16, torch.bfloat16)
+    # the embedding's rows are gathered, then cast
+    assert model.embed.data_ptr() == params["embed"].data_ptr()
+    tokens = torch.from_numpy(_tokens((1, 32), seed=3))
+    for _ in range(2):
+        torch.testing.assert_close(
+            model(tokens),
+            llama.forward(params, tokens, cfg, fa.flash_attention),
+            rtol=0, atol=0)
+
+
+def test_llama_model_holds_weights_in_the_compute_dtype_as_themselves():
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32)
+    params = _port_params(cfg)
+    model = llama.LlamaModel(cfg, params)
+    for name, w in model.layers.items():
+        assert w.data_ptr() == params["layers"][name].data_ptr()
+    for name in ("final_norm", "lm_head"):
+        assert getattr(model, name).data_ptr() == params[name].data_ptr()
+    tokens = torch.from_numpy(_tokens((1, 32), seed=5))
+    torch.testing.assert_close(model(tokens),
+                               llama.forward(params, tokens, cfg),
+                               rtol=0, atol=0)
+
+
+def test_llama_model_loads_master_weights_into_its_bf16_ones():
+    """``load_state_dict`` of f32 masters casts them into the bf16
+    weights: the model then serves ``forward`` on those masters."""
+    cfg = llama.LlamaConfig.tiny()
+    model = llama.LlamaModel(cfg, _port_params(), attn_fn=fa.flash_attention)
+    params = tree_map(lambda w: w * -1, _port_params())
+    model.load_state_dict(
+        {"embed": params["embed"], "final_norm": params["final_norm"],
+         "lm_head": params["lm_head"],
+         **{f"layers.{k}": w for k, w in params["layers"].items()}})
+    assert model.lm_head.dtype == torch.bfloat16
+    tokens = torch.from_numpy(_tokens((1, 32), seed=4))
+    torch.testing.assert_close(
+        model(tokens), llama.forward(params, tokens, cfg, fa.flash_attention),
+        rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["inference_mode", "no_grad"])
+def test_llama_model_built_and_served_under_either_mode(mode):
+    cfg = llama.LlamaConfig.tiny()
+    params = _port_params()
+    tokens = torch.from_numpy(_tokens((1, 32), seed=6))
+    with getattr(torch, mode)():
+        model = llama.LlamaModel(cfg, params, attn_fn=fa.flash_attention)
+        got = model(tokens)
+    torch.testing.assert_close(
+        got, llama.forward(params, tokens, cfg, fa.flash_attention),
         rtol=0, atol=0)

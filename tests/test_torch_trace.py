@@ -1,9 +1,10 @@
 """The port's spans: ``obs.rpcz`` ids, clock and capture store, and the
 model path's spans (``llama.forward``, ``llama.cast``, ``train.*``).
 
-Every case but the last runs on the CPU with ``torch.profiler`` started
-for CPU activity; the last (``cuda``) holds the cast spans to the weight
-casts' kernels on the card.
+Every case but the last two runs on the CPU with ``torch.profiler``
+started for CPU activity; the last two (``cuda``) hold the functional
+path's cast spans to the weight casts' kernels on the card, and a served
+request to no weight cast at all.
 """
 
 import dataclasses
@@ -86,8 +87,8 @@ def test_observability_off_records_nothing_under_the_profiler():
 
 def test_forward_records_its_span_and_one_cast_span_a_layer_and_the_head():
     cfg, params, tokens = _model_and_tokens()
-    _, spans, start, end = _traced(lambda: llama.LlamaModel(cfg, params)(
-        tokens))
+    _, spans, start, end = _traced(lambda: llama.forward(params, tokens,
+                                                         cfg))
     forward = [s for s in spans if s.name == "llama.forward"]
     casts = [s for s in spans if s.name == "llama.cast"]
     assert len(forward) == 1 and len(spans) == cfg.n_layers + 2
@@ -110,6 +111,13 @@ def test_forward_records_its_span_and_one_cast_span_a_layer_and_the_head():
     assert [s.counts["kernels"] for s in casts] == [9] * cfg.n_layers + [2]
     assert all(s.device is None and s.device_start_ns is None
                for s in spans)  # no device interval on the CPU
+
+
+def test_a_served_call_records_its_span_and_casts_nothing():
+    cfg, params, tokens = _model_and_tokens()
+    model = llama.LlamaModel(cfg, params)
+    _, spans, _, _ = _traced(lambda: model(tokens))
+    assert [s.name for s in spans] == ["llama.forward"]
 
 
 def test_train_step_holds_forward_backward_and_optimizer_in_order():
@@ -287,15 +295,14 @@ def test_marked_spans_lie_between_their_marker_kernels(monkeypatch):
     assert opt.device_start_ns == at(6)
 
 
-def cast_kernels(model, tokens):
-    """One traced forward of ``model`` on the card under the profiler (CPU
-    and CUDA, shapes recorded). Returns the number of device operations
-    that belong to each ``llama.cast`` span in order (midpoint in its
-    device interval, markers aside), those among them that are not weight
-    casts, and the weight casts that belong to none. A weight cast is a
-    kernel launched by an f32 → bf16 ``aten::copy_`` of a tensor of at
-    most two dimensions: weights are [in, out] or [h], activations have
-    three or more."""
+def card_trace(serve, tokens):
+    """One traced call of ``serve(tokens)`` on the card under the profiler
+    (CPU and CUDA, shapes recorded), under ``inference_mode``. Returns the
+    spans captured, with their device intervals, and the device operations,
+    markers aside, each as ``(midpoint_ns, name, weight_cast)``. A weight
+    cast is a kernel launched by an f32 → bf16 ``aten::copy_`` of a tensor
+    of at most two dimensions: weights are [in, out] or [h], activations
+    have three or more."""
     from torch.autograd import DeviceType
 
     rpcz.clear()
@@ -304,57 +311,95 @@ def cast_kernels(model, tokens):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
         with torch.inference_mode():
-            model(tokens)
+            # the profiler can lose a session's first kernel records (up
+            # to 9 on an H100): these go first, so the call's are kept
+            pad = torch.zeros(1, device=tokens.device)
+            for _ in range(16):
+                pad.add_(1)
+            serve(tokens)
         torch.cuda.synchronize()
     end = time.time_ns()
     events = list(prof.profiler.kineto_results.events())
     device = [e for e in events if e.device_type() == DeviceType.CUDA
               and not e.is_user_annotation()]
-    casts = [s for s in rpcz.captured(start, end, [
+    spans = rpcz.captured(start, end, [
         (e.device_index(), e.name(), e.start_ns(), e.end_ns())
-        for e in device]) if s.name == "llama.cast"]
+        for e in device])
     # the ops' ids: CUDA runtime calls carry ids of another numbering
     ops = {e.correlation_id(): e for e in events
            if e.device_type() == DeviceType.CPU
            and e.name().startswith("aten::")}
 
-    def op_of(e):
+    def weight_cast(e):
         op = ops.get(e.linked_correlation_id())
-        return None if op is None else (op.name(), list(op.dtypes()[:2]),
-                                        [list(x) for x in op.shapes()[:2]])
+        return op is not None and op.name() == "aten::copy_" \
+            and list(op.dtypes()[:2]) == ["c10::BFloat16", "float"] \
+            and len(op.shapes()[1]) <= 2
 
-    def weight_cast(op):
-        return op is not None and op[0] == "aten::copy_" \
-            and op[1] == ["c10::BFloat16", "float"] and len(op[2][1]) <= 2
+    return spans, [((e.start_ns() + e.end_ns()) / 2, e.name()[:80],
+                    weight_cast(e))
+                   for e in device if not rpcz.is_marker(e.name())]
 
-    counts, foreign, outside = [0] * len(casts), [], []
-    for e in device:
-        if rpcz.is_marker(e.name()):
-            continue
-        mid = (e.start_ns() + e.end_ns()) / 2
-        owner = [i for i, s in enumerate(casts)
-                 if s.device_start_ns is not None
-                 and s.device_start_ns <= mid <= s.device_end_ns]
-        op = op_of(e)
-        for i in owner:
-            counts[i] += 1
-            if not weight_cast(op):
-                foreign.append((i, e.name()[:80], op))
-        if not owner and weight_cast(op):
-            outside.append((e.name()[:80], op))
-    return counts, foreign, outside
+
+def inside(s, ops) -> list:
+    """The operations of ``card_trace`` whose midpoint lies in the marked
+    span ``s``'s device interval."""
+    if s.device_start_ns is None:
+        return []
+    return [op for op in ops if s.device_start_ns <= op[0]
+            <= s.device_end_ns]
+
+
+def cast_kernels(serve, tokens):
+    """One traced call of ``serve`` on the card. Returns the number of
+    device operations that belong to each ``llama.cast`` span in order,
+    those among them that are not weight casts, and the weight casts that
+    belong to none."""
+    spans, ops = card_trace(serve, tokens)
+    casts = [s for s in spans if s.name == "llama.cast"]
+    owned = [inside(s, ops) for s in casts]
+    foreign = [(i, name) for i, found in enumerate(owned)
+               for _, name, cast in found if not cast]
+    mine = {id(op) for found in owned for op in found}
+    outside = [op[1] for op in ops if op[2] and id(op) not in mine]
+    return [len(found) for found in owned], foreign, outside
+
+
+def _card_model_and_forward():
+    from brpc_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg, params, tokens = _model_and_tokens("cuda")
+    model = llama.LlamaModel(cfg, params, attn_fn=flash_attention)
+
+    def functional(t):
+        return llama.forward(params, t, cfg, flash_attention)
+
+    with torch.inference_mode():
+        model(tokens)  # builds and loads the kernel
+        functional(tokens)
+    return cfg, model, functional, tokens
 
 
 @pytest.mark.cuda
 def test_cast_spans_hold_the_weight_casts_and_nothing_else_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from brpc_tpu_torch.ops.flash_attention import flash_attention
-
-    cfg, params, tokens = _model_and_tokens("cuda")
-    model = llama.LlamaModel(cfg, params, attn_fn=flash_attention)
-    with torch.inference_mode():
-        model(tokens)  # builds and loads the kernel
-    counts, foreign, outside = cast_kernels(model, tokens)
+    cfg, _, functional, tokens = _card_model_and_forward()
+    counts, foreign, outside = cast_kernels(functional, tokens)
     assert counts == [9] * cfg.n_layers + [2]
     assert foreign == [] and outside == []
+
+
+@pytest.mark.cuda
+def test_a_served_request_casts_no_weight_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg, model, functional, tokens = _card_model_and_forward()
+    kernels = []
+    for serve in (model, functional):
+        spans, ops = card_trace(serve, tokens)
+        (forward,) = [s for s in spans if s.name == "llama.forward"]
+        if serve is model:
+            assert [op for op in ops if op[2]] == []
+        kernels.append(len(inside(forward, ops)))
+    assert kernels[1] - kernels[0] == 9 * cfg.n_layers + 2
