@@ -13,7 +13,14 @@ give the same logits:
   weight but the embedding in ``cfg.dtype`` once and casts none per
   request: for a 7B model about 14.5 GB on the card in place of 29 GB;
 - GQA attention with RoPE (halves, not interleaved pairs), a SwiGLU MLP,
-  RMSNorm reduced in f32, an untied LM head and f32 logits.
+  RMSNorm reduced in f32, an untied LM head and f32 logits;
+- a config with experts (``n_experts`` > 0, Mixtral's layer) runs
+  ``models.moe.expert_layer`` in place of the MLP: a router ``w_router``
+  [h, E] and stacked experts ``w_gate``/``w_up`` [E, h, f] and ``w_down``
+  [E, f, h] a layer, top-``experts_per_token`` and dropless. Such a
+  config is served and runs the functional ``forward``; it has no
+  sharded layout (``param_specs`` raises), and training it is not
+  supported.
 
 ``attn_fn`` is pluggable as in the reference; pass
 ``brpc_tpu_torch.ops.flash_attention.flash_attention`` for the CUDA kernel
@@ -44,6 +51,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
+from brpc_tpu_torch.models import moe
 from brpc_tpu_torch.obs import rpcz
 from brpc_tpu_torch.parallel import functional as pf
 from brpc_tpu_torch.parallel.mesh import PartitionSpec as P, Ranks
@@ -66,6 +74,14 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16        # compute dtype
     param_dtype: torch.dtype = torch.float32   # master weights
+    n_experts: int = 0            # 0: the dense MLP
+    experts_per_token: int = 0
+
+    def __post_init__(self):
+        if self.n_experts and not 0 < self.experts_per_token \
+                <= self.n_experts:
+            raise ValueError(f"experts_per_token {self.experts_per_token} "
+                             f"with {self.n_experts} experts")
 
     @staticmethod
     def tiny(vocab_size: int = 512) -> "LlamaConfig":
@@ -87,9 +103,12 @@ class LlamaConfig:
 
 def param_shapes(cfg: LlamaConfig) -> Params:
     """The shape of every parameter, in the layout of ``init_params``."""
-    h, L = cfg.hidden, cfg.n_layers
+    h, L, f, e = cfg.hidden, cfg.n_layers, cfg.intermediate, cfg.n_experts
     q_out = cfg.n_heads * cfg.head_dim
     kv_out = cfg.n_kv_heads * cfg.head_dim
+    ffn = {"w_router": (L, h, e), "w_gate": (L, e, h, f),
+           "w_up": (L, e, h, f), "w_down": (L, e, f, h)} if e else \
+        {"w_gate": (L, h, f), "w_up": (L, h, f), "w_down": (L, f, h)}
     return {
         "embed": (cfg.vocab_size, h),
         "layers": {
@@ -97,9 +116,7 @@ def param_shapes(cfg: LlamaConfig) -> Params:
             "wk": (L, h, kv_out),
             "wv": (L, h, kv_out),
             "wo": (L, q_out, h),
-            "w_gate": (L, h, cfg.intermediate),
-            "w_up": (L, h, cfg.intermediate),
-            "w_down": (L, cfg.intermediate, h),
+            **ffn,
             "attn_norm": (L, h),
             "mlp_norm": (L, h),
         },
@@ -127,9 +144,9 @@ def init_params(cfg: LlamaConfig, *, generator: torch.Generator,
 
     layers = {}
     for name, shape in shapes["layers"].items():
-        # stacked [L, in, out] weights have fan_in = in; norms are [L, h]
+        # stacked [L, (E,) in, out] weights have fan_in = in; norms [L, h]
         layers[name] = ones(shape) if name.endswith("norm") \
-            else dense(shape, shape[1])
+            else dense(shape, shape[-2])
     return {
         "embed": dense(shapes["embed"], 1.0),
         "layers": layers,
@@ -143,7 +160,10 @@ def param_specs(cfg: LlamaConfig) -> Params:
     reference's Megatron layout: the attention's and the MLP's first
     products column-sharded over 'tp', their second products row-sharded,
     the embedding and the LM head sharded by vocabulary. ``make_train_step``
-    runs per-rank tensor-parallel code on params laid out by them."""
+    runs per-rank tensor-parallel code on params laid out by them. A config
+    with experts has no such layout: ``ValueError``."""
+    if cfg.n_experts:
+        raise ValueError("no sharded layout for a config with experts")
     column, row, whole = P(None, None, "tp"), P(None, "tp", None), \
         P(None, None)
     layers = {"wq": column, "wk": column, "wv": column, "wo": row,
@@ -202,10 +222,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
            positions: torch.Tensor, attn_fn: Optional[AttnFn] = None,
            tp=None) -> torch.Tensor:
-    """One decoder layer. With a 'tp' group, ``lp`` holds this rank's
-    Megatron shards: the heads and the MLP's intermediate columns it owns
-    (column-parallel products after ``copy_to``), and the matching rows of
-    ``wo`` and ``w_down`` (``row_parallel``)."""
+    """One decoder layer, its feed-forward the MLP or, for a config with
+    experts, ``moe.expert_layer``. With a 'tp' group (dense configs only),
+    ``lp`` holds this rank's Megatron shards: the heads and the MLP's
+    intermediate columns it owns (column-parallel products after
+    ``copy_to``), and the matching rows of ``wo`` and ``w_down``
+    (``row_parallel``)."""
     b, t, _ = x.shape
     y = pf.copy_to(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
     q = (y @ lp["wq"]).reshape(b, t, -1, cfg.head_dim)
@@ -216,6 +238,10 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
     attend = attn_fn if attn_fn is not None else attention
     x = x + pf.row_parallel(attend(q, k, v), lp["wo"], tp)
     y = pf.copy_to(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), tp)
+    if cfg.n_experts:
+        return x + moe.expert_layer(y, lp["w_router"], lp["w_gate"],
+                                    lp["w_up"], lp["w_down"],
+                                    cfg.experts_per_token)
     return x + pf.row_parallel(F.silu(y @ lp["w_gate"]) * (y @ lp["w_up"]),
                                lp["w_down"], tp)
 

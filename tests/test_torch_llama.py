@@ -210,6 +210,8 @@ def test_llama3_8b_config_matches_reference():
     want = dataclasses.asdict(ref.LlamaConfig.llama3_8b())
     assert got.pop("dtype") == torch.bfloat16
     assert got.pop("param_dtype") == torch.float32
+    # the port's expert fields, which the reference lacks: a dense model
+    assert (got.pop("n_experts"), got.pop("experts_per_token")) == (0, 0)
     want.pop("dtype"), want.pop("param_dtype")
     assert got == want
 

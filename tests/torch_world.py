@@ -513,6 +513,27 @@ def _moe(rank: int, inputs: dict) -> dict:
     return out
 
 
+def _expert_layer(rank: int, inputs: dict) -> dict:
+    """The dropless top-2 layer of 8 experts over ep = 2: rank r holds
+    experts 4r..4r+3 and the group completes the sum."""
+    import torch
+
+    from brpc_tpu_torch.models import moe
+    from brpc_tpu_torch.parallel import make_mesh
+    from brpc_tpu_torch.parallel.mesh import axis_group
+
+    mesh = make_mesh({"ep": 2}, device_type="cpu")
+    held = range(4 * rank, 4 * rank + 4)
+    w = {k: torch.from_numpy(inputs[k])
+         for k in ("w_router", "w_gate", "w_up", "w_down")}
+    mine = {k: v[held.start:held.stop] for k, v in w.items()
+            if k != "w_router"}
+    out = moe.expert_layer(torch.from_numpy(inputs["x"]), w["w_router"],
+                           mine["w_gate"], mine["w_up"], mine["w_down"], 2,
+                           held=held, group=axis_group(mesh, "ep"))
+    return {"out": out}
+
+
 def _pipeline(rank: int, inputs: dict) -> dict:
     import torch
 
@@ -554,4 +575,5 @@ def _obs_counters(rank: int, inputs: dict) -> dict:
 
 PROGRAMS = {"parallel": _parallel, "ps": _ps,
             "sharded_train": _sharded_train, "ring": _ring, "moe": _moe,
+            "expert_layer": _expert_layer,
             "pipeline": _pipeline, "obs_counters": _obs_counters}
