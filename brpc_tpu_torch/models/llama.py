@@ -27,13 +27,38 @@ give the same logits:
 when serving. That kernel is forward only, as the reference's is, so
 ``make_train_step`` trains with dense attention (``attn_fn=None``).
 
+``LlamaModel`` replays its forward from a CUDA graph, one a prompt shape,
+where the tokens are on CUDA, the config is dense (no experts) and no
+weight requires grad; anywhere else (the CPU, an expert config, weights
+being trained) it runs ``forward`` as it is. A replay copies the tokens
+into the graph's input, replays the graph and casts the head's output
+into fresh f32 logits, so the host enqueues three operations a request
+instead of some two thousand; it gains only where prompt shapes (batch
+and length) repeat exactly. A shape's first call runs ``forward``. The
+shape is captured after it (``_dense_forward``: the same kernels in the
+same order from the embedding to the LM head's product in ``cfg.dtype``)
+while the model holds fewer than ``GRAPHS`` graphs whose logits fit in
+``GRAPH_MEMORY_SHARE`` of the card's memory. Once they are full, a shape
+is captured after its second call, the least recently replayed graphs
+going to make room, and only while the graphs have been replayed
+``REPAID`` times for each capture: so prompts whose shapes rarely repeat
+pay ``GRAPHS`` captures and a few more, and are then served by
+``forward`` as before. The graphs' logits fill at most that share of the
+card; their pool, which they share, holds besides the largest captured
+shape's activations. The captured body opens no span (a replay would not
+run it): the expert layer's spans are why a config with experts is not
+graphed.
+
 While the program is traced (``obs.rpcz.trace``: a ``torch.profiler``
 session runs), ``forward`` records the span ``llama.forward`` and, one a
 layer and one for the final norm and the LM head where their weights need
 a cast, ``llama.cast`` around the casts with their ``kernels`` and
 ``bytes`` counted;
 ``make_train_step``'s step records ``train.forward``, ``train.backward``
-and ``train.optimizer``. Each marks its interval on the device.
+and ``train.optimizer``. Each marks its interval on the device. A
+``LlamaModel`` call that replays a graph records ``llama.forward`` around
+the copy of the tokens, the replay and the cast of the logits, and counts
+``graph`` (``GRAPH_COUNTER``) on it.
 
 The same body runs one rank's share of a model sharded over a (dp, tp,
 sp) mesh (``forward``'s ``ranks``): its collectives are the identity
@@ -42,6 +67,7 @@ where the group has one rank.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Callable, Dict, Optional
@@ -51,6 +77,7 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
+from brpc_tpu_torch.analysis.race import checked_lock
 from brpc_tpu_torch.models import moe
 from brpc_tpu_torch.obs import rpcz
 from brpc_tpu_torch.parallel import functional as pf
@@ -59,6 +86,20 @@ from brpc_tpu_torch.utils.tree import tree_map
 
 Params = Dict[str, object]
 AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+#: The counter of a ``llama.forward`` span whose call replayed a graph.
+GRAPH_COUNTER = "graph"
+#: The most graphs a ``LlamaModel`` holds (as many as there are lengths
+#: up to 4096 that K1 takes, multiples of 128) ...
+GRAPHS = 32
+#: ... and the share of the card's memory that their logits may fill.
+GRAPH_MEMORY_SHARE = 1 / 16
+#: The most shapes served without a graph that a ``LlamaModel`` remembers,
+#: so that a shape's second call can capture it once the graphs are full.
+SEEN = 64
+#: Once the graphs are full, a capture needs this many replays for each
+#: capture before it.
+REPAID = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,15 +260,38 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, t, hq * d)
 
 
-def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
-           positions: torch.Tensor, attn_fn: Optional[AttnFn] = None,
-           tp=None) -> torch.Tensor:
-    """One decoder layer, its feed-forward the MLP or, for a config with
-    experts, ``moe.expert_layer``. With a 'tp' group (dense configs only),
-    ``lp`` holds this rank's Megatron shards: the heads and the MLP's
-    intermediate columns it owns (column-parallel products after
-    ``copy_to``), and the matching rows of ``wo`` and ``w_down``
-    (``row_parallel``)."""
+def _layers(cfg: LlamaConfig, x: torch.Tensor, positions: torch.Tensor,
+            weights, attn_fn: Optional[AttnFn], tp,
+            feed_forward: Callable) -> torch.Tensor:
+    """The decoder layers in turn: ``weights`` gives each layer's weights
+    in ``cfg.dtype`` and ``feed_forward(cfg, y, lp, tp)`` its feed-forward
+    (``_feed_forward``, or ``_mlp`` where no span may be reached). With a
+    'tp' group (dense configs only), each ``lp`` holds this rank's
+    Megatron shards: the heads and the MLP's intermediate columns it owns
+    (column-parallel products after ``copy_to``), and the matching rows of
+    ``wo`` and ``w_down`` (``row_parallel``)."""
+    for lp in weights:
+        x, y = _attention_half(cfg, x, lp, positions, attn_fn, tp)
+        x = x + feed_forward(cfg, y, lp, tp)
+    return x
+
+
+def _feed_forward(cfg: LlamaConfig, y: torch.Tensor, lp: Params,
+                  tp) -> torch.Tensor:
+    """A layer's feed-forward: the MLP or, for a config with experts,
+    ``moe.expert_layer``."""
+    if cfg.n_experts:
+        return moe.expert_layer(y, lp["w_router"], lp["w_gate"],
+                                lp["w_up"], lp["w_down"],
+                                cfg.experts_per_token)
+    return _mlp(cfg, y, lp, tp)
+
+
+def _attention_half(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
+                    positions: torch.Tensor, attn_fn: Optional[AttnFn],
+                    tp) -> tuple:
+    """A layer up to its feed-forward: the residual after attention, and
+    its norm, the feed-forward's input."""
     b, t, _ = x.shape
     y = pf.copy_to(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
     q = (y @ lp["wq"]).reshape(b, t, -1, cfg.head_dim)
@@ -237,13 +301,14 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
     k = rope(k, positions, cfg.rope_theta)
     attend = attn_fn if attn_fn is not None else attention
     x = x + pf.row_parallel(attend(q, k, v), lp["wo"], tp)
-    y = pf.copy_to(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), tp)
-    if cfg.n_experts:
-        return x + moe.expert_layer(y, lp["w_router"], lp["w_gate"],
-                                    lp["w_up"], lp["w_down"],
-                                    cfg.experts_per_token)
-    return x + pf.row_parallel(F.silu(y @ lp["w_gate"]) * (y @ lp["w_up"]),
-                               lp["w_down"], tp)
+    return x, pf.copy_to(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), tp)
+
+
+def _mlp(cfg: LlamaConfig, y: torch.Tensor, lp: Params,
+         tp) -> torch.Tensor:
+    """The dense SwiGLU feed-forward."""
+    return pf.row_parallel(F.silu(y @ lp["w_gate"]) * (y @ lp["w_up"]),
+                           lp["w_down"], tp)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -289,24 +354,50 @@ def _cast(ws, dtype: torch.dtype, mark: torch.Tensor) -> list:
 
 def _forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
              attn_fn: Optional[AttnFn], ranks: Ranks) -> torch.Tensor:
-    x = _embed(params["embed"], _clamped_ids(tokens, cfg.vocab_size),
-               ranks).to(cfg.dtype)
-    b, t = tokens.shape
-    positions = (ranks.sp_index * t
-                 + torch.arange(t, device=tokens.device)).expand(b, t)
+    x, positions = _inputs(params["embed"], tokens, cfg, ranks)
     # One unbind per stacked leaf: its backward stacks the layers' grads
     # once, where indexing w[i] would add a zero-filled gradient of the
     # whole stack for every layer.
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
-    for i in range(cfg.n_layers):
-        lp = dict(zip(layers, _cast([ws[i] for ws in layers.values()],
-                                    cfg.dtype, tokens)))
-        x = _layer(cfg, x, lp, positions, attn_fn, ranks.tp)
+    weights = (dict(zip(layers, _cast([ws[i] for ws in layers.values()],
+                                      cfg.dtype, tokens)))
+               for i in range(cfg.n_layers))
+    x = _layers(cfg, x, positions, weights, attn_fn, ranks.tp, _feed_forward)
     norm, head_w = _cast([params["final_norm"], params["lm_head"]],
                          cfg.dtype, tokens)
-    x = rms_norm(x, norm, cfg.norm_eps)
-    head = pf.copy_to(x, ranks.tp) @ head_w
+    head = _head(cfg, x, norm, head_w, ranks.tp)
     return pf.gather_from(head, ranks.tp).float()
+
+
+def _dense_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                   attn_fn: Optional[AttnFn]) -> torch.Tensor:
+    """``_forward`` on one rank for a dense config whose weights, the
+    embedding aside, are in ``cfg.dtype`` already, up to the LM head's
+    product in ``cfg.dtype``: the same pieces, so the same kernels in the
+    same order, with no span and no weight cast, so a CUDA graph can hold
+    all of it."""
+    x, positions = _inputs(params["embed"], tokens, cfg, Ranks())
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    weights = (dict(zip(layers, ws)) for ws in zip(*layers.values()))
+    x = _layers(cfg, x, positions, weights, attn_fn, None, _mlp)
+    return _head(cfg, x, params["final_norm"], params["lm_head"], None)
+
+
+def _inputs(table: torch.Tensor, tokens: torch.Tensor, cfg: LlamaConfig,
+            ranks: Ranks) -> tuple:
+    """The tokens' embedding in ``cfg.dtype`` and their positions."""
+    x = _embed(table, _clamped_ids(tokens, cfg.vocab_size),
+               ranks).to(cfg.dtype)
+    b, t = tokens.shape
+    positions = (ranks.sp_index * t
+                 + torch.arange(t, device=tokens.device)).expand(b, t)
+    return x, positions
+
+
+def _head(cfg: LlamaConfig, x: torch.Tensor, norm: torch.Tensor,
+          head_w: torch.Tensor, tp) -> torch.Tensor:
+    """The final norm and the LM head's product, in ``cfg.dtype``."""
+    return pf.copy_to(rms_norm(x, norm, cfg.norm_eps), tp) @ head_w
 
 
 def _embed(table: torch.Tensor, ids: torch.Tensor,
@@ -408,6 +499,72 @@ def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
     return step
 
 
+@dataclasses.dataclass
+class _Graph:
+    """One prompt shape's captured forward: the tokens it reads and the
+    logits in ``cfg.dtype`` it writes."""
+    graph: "torch.cuda.CUDAGraph"
+    tokens: torch.Tensor
+    logits: torch.Tensor
+
+
+class _Graphs:
+    """A model's graphs by prompt shape, captured on ``weights`` (their
+    ``data_ptr``s) into one memory pool, least recently replayed first:
+    at most ``GRAPHS`` of them, whose logits fill at most ``budget``
+    bytes; the shapes lately served without one (``SEEN`` at most); and
+    how many replays and captures there have been."""
+
+    def __init__(self, budget: int, weights: tuple):
+        self.budget = budget
+        self.weights = weights
+        self.pool = None
+        self.graphs: "collections.OrderedDict[tuple, _Graph]" = \
+            collections.OrderedDict()
+        self.seen: "collections.OrderedDict[tuple, None]" = \
+            collections.OrderedDict()
+        self.replays = 0
+        self.captures = 0
+
+    def held(self) -> int:
+        """The bytes of the graphs' logits."""
+        return sum(g.logits.nbytes for g in self.graphs.values())
+
+    def replay(self, key: tuple) -> Optional[_Graph]:
+        """``key``'s graph, now the most recently replayed, or None."""
+        g = self.graphs.get(key)
+        if g is not None:
+            self.graphs.move_to_end(key)
+            self.replays += 1
+        return g
+
+    def admit(self, key: tuple, nbytes: int) -> bool:
+        """Whether to capture ``key``'s shape, whose logits take
+        ``nbytes``, after a call served without a graph. Yes on its first
+        call while there is room. Else on its second, while the graphs
+        have been replayed ``REPAID`` times for each capture, the least
+        recently replayed going to make room: captures then cost at most
+        a share of what replays save, whatever the shapes. Logits larger
+        than the budget alone are never captured."""
+        if key in self.graphs or nbytes > self.budget:
+            return False
+        if len(self.graphs) >= GRAPHS \
+                or self.held() + nbytes > self.budget:
+            if key not in self.seen:
+                self.seen[key] = None
+                if len(self.seen) > SEEN:
+                    self.seen.popitem(last=False)
+                return False
+            if self.replays < REPAID * self.captures:
+                return False
+        self.seen.pop(key, None)
+        while len(self.graphs) >= GRAPHS \
+                or self.held() + nbytes > self.budget:
+            self.graphs.popitem(last=False)
+        self.captures += 1
+        return True
+
+
 class LlamaModel(nn.Module):
     """Holds the params of ``init_params`` and serves ``forward``.
 
@@ -416,6 +573,13 @@ class LlamaModel(nn.Module):
     is held in ``cfg.dtype``, cast once here (wrapped, not copied, where it
     is in ``cfg.dtype`` already), so a request casts no weight and gives
     the logits of ``forward`` on the params given.
+
+    On CUDA a dense model replays a prompt shape's forward from a CUDA
+    graph once the shape is captured (the module's docstring says when,
+    and how many graphs a model holds). Calls that share a model are
+    enqueued one at a time; on one stream, as the default stream is, each
+    reads its graph's logits before the next replay writes them. Weights
+    moved or replaced (not loaded in place) drop the graphs.
     """
 
     def __init__(self, cfg: LlamaConfig, params: Params,
@@ -432,10 +596,61 @@ class LlamaModel(nn.Module):
             {name: frozen(w) for name, w in params["layers"].items()})
         self.final_norm = frozen(params["final_norm"])
         self.lm_head = frozen(params["lm_head"])
+        self._graphs: Optional[_Graphs] = None
+        self._enqueue = checked_lock("models.llama_graphs")
 
     def params(self) -> Params:
         return {"embed": self.embed, "layers": dict(self.layers),
                 "final_norm": self.final_norm, "lm_head": self.lm_head}
 
+    def _replays(self, device: torch.device) -> bool:
+        """Whether a call on ``device`` takes the graph path: CUDA, a
+        dense config, and no weight that requires grad."""
+        return device.type == "cuda" and not self.cfg.n_experts \
+            and not any(p.requires_grad for p in self.parameters())
+
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return forward(self.params(), tokens, self.cfg, self.attn_fn)
+        if not self._replays(tokens.device):
+            return forward(self.params(), tokens, self.cfg, self.attn_fn)
+        key = (tuple(tokens.shape), tokens.dtype, tokens.device)
+        weights = tuple(p.data_ptr() for p in self.parameters())
+        with self._enqueue:
+            if self._graphs is None or self._graphs.weights != weights:
+                total = torch.cuda.get_device_properties(
+                    tokens.device).total_memory
+                self._graphs = _Graphs(int(total * GRAPH_MEMORY_SHARE),
+                                       weights)
+            graphs = self._graphs
+            g = graphs.replay(key)
+        if g is None:
+            logits = forward(self.params(), tokens, self.cfg, self.attn_fn)
+            nbytes = tokens.numel() * self.cfg.vocab_size \
+                * self.cfg.dtype.itemsize
+            with self._enqueue:
+                if graphs is self._graphs and graphs.admit(key, nbytes):
+                    graphs.graphs[key] = self._capture(tokens, graphs)
+            return logits
+        with rpcz.trace("llama", "forward", mark=tokens) as sp:
+            with self._enqueue:
+                g.tokens.copy_(tokens)
+                g.graph.replay()
+                logits = g.logits.to(torch.float32, copy=True)
+            if sp is not None:
+                sp.count(GRAPH_COUNTER, 1)
+        return logits
+
+    def _capture(self, tokens: torch.Tensor, graphs: _Graphs) -> _Graph:
+        """Captures ``_dense_forward`` for ``tokens``' shape into
+        ``graphs``' pool, on a copy of the tokens held outside it. K1 does
+        not count the launches it makes while captured."""
+        with torch.inference_mode(False):
+            static = tokens.clone()
+        if graphs.pool is None:
+            graphs.pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        params = self.params()
+        # thread_local: another thread's CUDA calls do not break a capture
+        with torch.cuda.graph(graph, pool=graphs.pool,
+                              capture_error_mode="thread_local"):
+            out = _dense_forward(params, static, self.cfg, self.attn_fn)
+        return _Graph(graph, static, out)

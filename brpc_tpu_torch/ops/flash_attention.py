@@ -7,8 +7,10 @@ raises ``ValueError``. It is forward only, as the reference is.
 
 On CUDA tensors it launches one of two Hopper kernels of
 ``csrc/flash_attention.cu`` and counts the launch in ``launches`` under its
-dtype: for bf16 wgmma products on TMA tiles (128 query rows, 64-row K/V
-tiles, P fed to the P·V product as two bf16 halves); for f32 mma.sync
+dtype (a call made while a CUDA graph is captured launches nothing and
+counts nothing, nor does the graph's replay: a trace shows its kernels):
+for bf16 wgmma products on TMA tiles (128 query rows, 64-row K/V tiles,
+P fed to the P·V product as two bf16 halves); for f32 mma.sync
 products on TMA tiles (128 query rows, 64-row K/V tiles) in split TF32,
 each operand x as tf32(x) + tf32(x - tf32(x)) and each product as three
 TF32 products summed in f32, which holds the f32 bound that one TF32
@@ -26,8 +28,8 @@ import torch
 
 from brpc_tpu_torch.ops import _build
 
-# Kernel launches by kernel (its dtype); a caller sets them to 0 before a
-# run and reads them after.
+# Kernel launches by kernel (its dtype), those of CUDA graph replays
+# aside; a caller sets them to 0 before a run and reads them after.
 launches = {"bf16": 0, "f32": 0}
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
@@ -116,7 +118,8 @@ def _launch(q, k, v, causal: bool) -> torch.Tensor:
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
-    launches[kernel] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        launches[kernel] += 1
     return out.reshape(b, t, hq * d)
 
 

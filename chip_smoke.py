@@ -30,17 +30,21 @@ is fatal when it fails:
    f32 and bf16 compute (one launch of each K1 kernel a layer);
 4. serving at Llama-3-8B width, all 32 layers, weights drawn from a seed:
    three request shapes through ``LlamaModel`` with the flash-attention
-   kernel, each served ``REPEATS`` times after a warm-up and checked for
-   shape, dtype, finiteness and one kernel launch per layer, with the
-   median and range of latency, tokens/s and peak memory; the first
+   kernel. A warm-up serves each shape once, eagerly (``LlamaModel`` then
+   captures the shape's CUDA graph), with one kernel launch per layer
+   counted by the kernel's wrapper; then each shape is served ``REPEATS``
+   times from its graph and checked for shape, dtype, finiteness and no
+   launch counted by the wrapper (a replay launches from the graph), with
+   the median and range of latency, tokens/s and peak memory; the first
    request's logits against the dense attention path;
 5. one more request of each shape under ``torch.profiler``: device time by
-   kind of kernel, the attention kernel's share and the device's idle
-   share over the request; then the same weights at f32 compute, one
-   request of (1, 2048) through K1's f32 kernel: a warm-up and
-   ``F32_REPEATS`` timed requests, each checked as above with 32 f32
-   launches, the logits against the dense f32 path, and one request under
-   ``torch.profiler``;
+   kind of kernel, the attention kernel's share, the device's idle share
+   over the request, and one attention kernel a layer among the kernels
+   it recorded; then the same weights at f32 compute, one request of
+   (1, 2048) through K1's f32 kernel: a warm-up and ``F32_REPEATS`` timed
+   requests, each checked as above with 32 f32 launches in the warm-up,
+   the logits against the dense f32 path, and one request under
+   ``torch.profiler`` with 32 f32 attention kernels;
 6. the tiny config trained at f32 compute, three AdamW steps on the card
    against the same three on the CPU, then a checkpoint saved after step 2
    on the card, restored into a fresh template and stepped: it must give
@@ -205,7 +209,10 @@ The kernels line gives each kernel's launches by path
 processes) included; K1 has
 one entry a kernel, bf16 ("flash_attention", main path "serve") and f32
 ("flash_attention_f32", main path "serve_f32"), each with the tiny
-phase's launches ("tiny").
+phase's launches ("tiny"). A serving path's launches are those its
+wrapper counted in the warm-up's eager requests and those the profiler
+recorded in the profiled requests, which replay graphs; the timed
+requests' replays are counted by neither.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
@@ -698,49 +705,58 @@ def phase_serve():
     requests = [torch.randint(0, cfg.vocab_size, shape, generator=gen,
                               device="cuda") for shape in REQUESTS]
     with torch.inference_mode():
-        for tokens in requests:  # warm-up: cuBLAS handles and heuristics
+        # warm-up: each shape's eager first call (cuBLAS handles and
+        # heuristics), after which the model captures its graph
+        zero_counts(fa.launches)
+        for tokens in requests:
             model(tokens)
         torch.cuda.synchronize()
+        launches = flash_counts()
+        check(launches == {"flash_attention": len(requests) * cfg.n_layers,
+                           "flash_attention_f32": 0},
+              f"warm-up: {launches} launches over {len(requests)} requests")
 
-        zero_counts(fa.launches)
         for i, tokens in enumerate(requests):
-            logits = serve_requests(model, cfg, tokens, REPEATS, "bf16")
+            logits = serve_requests(model, cfg, tokens, REPEATS)
             if i == 0:
                 compare_dense(llama, params, cfg, tokens, logits,
                               DENSE_MAX_ABS, DENSE_MEAN_ABS)
             del logits
-        launches = flash_counts()
-        check(launches == {"flash_attention": len(requests) * REPEATS
-                           * cfg.n_layers, "flash_attention_f32": 0},
-              f"{launches} launches over {len(requests) * REPEATS} requests")
         for tokens in requests:
-            profile_run(f"B={tokens.shape[0]} T={tokens.shape[1]}",
-                        lambda: model(tokens))
+            k1 = profile_run(f"B={tokens.shape[0]} T={tokens.shape[1]}",
+                             lambda: model(tokens))["flash_attention"]
+            check(k1 == cfg.n_layers, f"profiled request {tuple(tokens.shape)}"
+                  f": {k1} attention kernels, want {cfg.n_layers}")
+            launches["flash_attention"] += k1
 
         # The same weights at f32 compute: K1's f32 kernel, 32 a request.
         cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
         model32 = llama.LlamaModel(cfg32, params, attn_fn=fa.flash_attention)
         tokens = requests[0]
-        model32(tokens)  # warm-up
-        torch.cuda.synchronize()
         zero_counts(fa.launches)
-        logits = serve_requests(model32, cfg32, tokens, F32_REPEATS, "f32")
+        model32(tokens)  # warm-up, then the capture
+        torch.cuda.synchronize()
         f32_launches = flash_counts()
-        check(f32_launches == {"flash_attention": 0, "flash_attention_f32":
-                               F32_REPEATS * cfg.n_layers},
-              f"f32 serving launches {f32_launches}")
+        check(f32_launches == {"flash_attention": 0,
+                               "flash_attention_f32": cfg.n_layers},
+              f"f32 warm-up launches {f32_launches}")
+        logits = serve_requests(model32, cfg32, tokens, F32_REPEATS)
         compare_dense(llama, params, cfg32, tokens, logits,
                       DENSE_F32_MAX_ABS, DENSE_F32_MEAN_ABS)
         del logits
-        profile_run(f"f32 B={tokens.shape[0]} T={tokens.shape[1]}",
-                    lambda: model32(tokens))
+        k1 = profile_run(f"f32 B={tokens.shape[0]} T={tokens.shape[1]}",
+                         lambda: model32(tokens))["flash_attention"]
+        check(k1 == cfg.n_layers, f"profiled f32 request: {k1} attention "
+              f"kernels, want {cfg.n_layers}")
+        f32_launches["flash_attention_f32"] += k1
     return {"serve": launches, "serve_f32": f32_launches}
 
 
-def serve_requests(model, cfg, tokens, repeats, kernel):
-    """Serves ``tokens`` ``repeats`` times, each checked for shape, dtype,
-    finiteness and one launch of K1's ``kernel`` a layer; prints latency,
-    tokens/s and peak memory; returns the last logits."""
+def serve_requests(model, cfg, tokens, repeats):
+    """Serves ``tokens`` ``repeats`` times from the shape's graph, each
+    checked for shape, dtype, finiteness and no launch counted by K1's
+    wrapper; prints latency, tokens/s and peak memory; returns the last
+    logits."""
     from brpc_tpu_torch.ops import flash_attention as fa
 
     b, t = tokens.shape
@@ -760,17 +776,16 @@ def serve_requests(model, cfg, tokens, repeats, kernel):
               f"{tuple(logits.shape)}")
         check(bool(torch.isfinite(logits).all()),
               f"request {b}x{t}: non-finite logits")
-        check(fa.launches == {**before, kernel: before[kernel]
-                              + cfg.n_layers},
+        check(fa.launches == before,
               f"request {b}x{t}: launches {fa.launches} after {before}, "
-              f"want {cfg.n_layers} of {kernel}")
+              f"want none counted in a replay")
     median = statistics.median(latencies)
-    print(f"request {kernel} B={b} T={t} x{repeats}: latency_ms median="
+    print(f"request {str(cfg.dtype)[6:]} B={b} T={t} x{repeats}: "
+          f"latency_ms median="
           f"{median * 1e3:.3f} min={min(latencies) * 1e3:.3f} "
           f"max={max(latencies) * 1e3:.3f} tokens_per_s median="
           f"{b * t / median:.1f} peak_mem_gb="
-          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} "
-          f"launches_each={cfg.n_layers}")
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f}")
     return logits
 
 
@@ -800,7 +815,8 @@ KERNEL_KINDS = (("flash_attention", re.compile(r"flash_fwd")),
 def profile_run(label, fn):
     """Runs ``fn`` once under ``torch.profiler`` and prints the device time
     by kind of kernel, the idle share of the device span, the time in
-    fill kernels (zeros) and the kernels that took longest."""
+    fill kernels (zeros) and the kernels that took longest; returns the
+    number of kernels it recorded by kind."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -814,11 +830,13 @@ def profile_run(label, fn):
                and not e.is_user_annotation]
     check(bool(kernels), "profiler recorded no device activity")
     by_kind = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    n_by_kind = dict.fromkeys(by_kind, 0)
     by_name = {}
     for e in kernels:
         us = e.time_range.elapsed_us()
         kind = next(k for k, pat in KERNEL_KINDS if pat.search(e.name))
         by_kind[kind] += us
+        n_by_kind[kind] += 1
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy = sum(by_kind.values())
     span = max(e.time_range.end for e in kernels) - \
@@ -831,6 +849,7 @@ def profile_run(label, fn):
               f"{k}_ms={v / 1e3:.3f}" for k, v in by_kind.items()))
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"profile top: {us / 1e3:.3f} ms {name[:100]}")
+    return n_by_kind
 
 
 def phase_tiny_train():

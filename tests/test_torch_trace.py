@@ -395,11 +395,15 @@ def test_a_served_request_casts_no_weight_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg, model, functional, tokens = _card_model_and_forward()
+    # a shape's first call runs eagerly; the warm-up's shape replays
+    fresh = llama.LlamaModel(cfg, model.params(), attn_fn=model.attn_fn)
     kernels = []
-    for serve in (model, functional):
+    for serve in (fresh, model, functional):
         spans, ops = card_trace(serve, tokens)
         (forward,) = [s for s in spans if s.name == "llama.forward"]
-        if serve is model:
+        if serve is not functional:
             assert [op for op in ops if op[2]] == []
         kernels.append(len(inside(forward, ops)))
-    assert kernels[1] - kernels[0] == 9 * cfg.n_layers + 2
+    eager, replay, want = kernels
+    assert want - eager == 9 * cfg.n_layers + 2
+    assert replay == eager + 1  # and the copy of the tokens into the graph
