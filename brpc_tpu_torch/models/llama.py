@@ -34,26 +34,21 @@ being trained) it runs ``forward`` as it is. A replay copies the tokens
 into the graph's input, replays the graph and casts the head's output
 into fresh f32 logits, so the host enqueues three operations a request
 instead of some two thousand; it gains only where prompt shapes (batch
-and length) repeat exactly. A shape's first call runs ``forward``. The
-shape is captured after it (``_dense_forward``: the same kernels in the
-same order from the embedding to the LM head's product in ``cfg.dtype``)
-while the model holds fewer than ``GRAPHS`` graphs whose logits fit in
-``GRAPH_MEMORY_SHARE`` of the card's memory. Once they are full, a shape
-is captured after its second call, the least recently replayed graphs
-going to make room, and only while the graphs have been replayed
-``REPAID`` times for each capture: so prompts whose shapes rarely repeat
-pay ``GRAPHS`` captures and a few more, and are then served by
-``forward`` as before. The graphs' logits fill at most that share of the
-card; their pool, which they share, holds besides the largest captured
-shape's activations. The captured body opens no span (a replay would not
-run it): the expert layer's spans are why a config with experts is not
-graphed.
+and length) repeat exactly. A shape's first call runs ``forward``; the
+shape is captured after it (``forward``'s body, which on the model's
+weights casts nothing and opens no span) while the model holds fewer than
+``GRAPHS`` graphs and its logits fit in ``GRAPH_MEMORY_SHARE`` of the
+card's memory beside theirs. A graph is kept for the model's life, so a
+model makes at most ``GRAPHS`` captures. A server whose first shapes fill
+the graphs serves every later shape with ``forward``. No benchmark cell
+sends such traffic; a cell of jittered prompt lengths (ROADMAP 3.8) is
+the one that would bring back an eviction rule, if it shows a loss. The
+graphs' pool, which they share, holds besides their logits the largest
+captured shape's activations. The expert layer's spans are why a config
+with experts is not graphed: a replay would not record them.
 
 While the program is traced (``obs.rpcz.trace``: a ``torch.profiler``
-session runs), ``forward`` records the span ``llama.forward`` and, one a
-layer and one for the final norm and the LM head where their weights need
-a cast, ``llama.cast`` around the casts with their ``kernels`` and
-``bytes`` counted;
+session runs), ``forward`` records the span ``llama.forward``, and
 ``make_train_step``'s step records ``train.forward``, ``train.backward``
 and ``train.optimizer``. Each marks its interval on the device. A
 ``LlamaModel`` call that replays a graph records ``llama.forward`` around
@@ -67,7 +62,6 @@ where the group has one rank.
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import math
 from typing import Callable, Dict, Optional
@@ -89,17 +83,11 @@ AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 #: The counter of a ``llama.forward`` span whose call replayed a graph.
 GRAPH_COUNTER = "graph"
-#: The most graphs a ``LlamaModel`` holds (as many as there are lengths
-#: up to 4096 that K1 takes, multiples of 128) ...
+#: The most graphs a ``LlamaModel`` captures in its life (as many as there
+#: are lengths up to 4096 that K1 takes, multiples of 128) ...
 GRAPHS = 32
 #: ... and the share of the card's memory that their logits may fill.
 GRAPH_MEMORY_SHARE = 1 / 16
-#: The most shapes served without a graph that a ``LlamaModel`` remembers,
-#: so that a shape's second call can capture it once the graphs are full.
-SEEN = 64
-#: Once the graphs are full, a capture needs this many replays for each
-#: capture before it.
-REPAID = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,7 +253,9 @@ def _layers(cfg: LlamaConfig, x: torch.Tensor, positions: torch.Tensor,
             feed_forward: Callable) -> torch.Tensor:
     """The decoder layers in turn: ``weights`` gives each layer's weights
     in ``cfg.dtype`` and ``feed_forward(cfg, y, lp, tp)`` its feed-forward
-    (``_feed_forward``, or ``_mlp`` where no span may be reached). With a
+    (``_feed_forward``). It is an argument so that the body a CUDA graph
+    captures, which only a dense config runs, reaches in the call graph no
+    span of the expert layer, which no replay would record. With a
     'tp' group (dense configs only), each ``lp`` holds this rank's
     Megatron shards: the heads and the MLP's intermediate columns it owns
     (column-parallel products after ``copy_to``), and the matching rows of
@@ -326,61 +316,36 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     logits its rows, whole over the vocabulary.
     """
     with rpcz.trace("llama", "forward", mark=tokens):
-        return _forward(params, tokens, cfg, attn_fn, ranks)
-
-
-def _count_casts(sp, ws, dtype: torch.dtype) -> None:
-    """Counts on the span ``sp`` (None while untraced) the casts of ``ws``
-    to ``dtype``: a kernel each, and the bytes it moves, each element read
-    once and written once. A tensor already in ``dtype`` is not copied."""
-    if sp is None:
-        return
-    cast = [w for w in ws if w.dtype != dtype]
-    sp.count("kernels", len(cast))
-    sp.count("bytes", sum(w.numel() * (w.element_size() + dtype.itemsize)
-                          for w in cast))
-
-
-def _cast(ws, dtype: torch.dtype, mark: torch.Tensor) -> list:
-    """``ws`` in ``dtype``; where any needs a cast, inside a ``llama.cast``
-    span marked on ``mark`` that counts them."""
-    if all(w.dtype == dtype for w in ws):
-        return list(ws)
-    with rpcz.trace("llama", "cast", mark=mark) as sp:
-        out = [w.to(dtype) for w in ws]
-        _count_casts(sp, ws, dtype)
-    return out
+        return _forward(params, tokens, cfg, attn_fn, ranks).float()
 
 
 def _forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
              attn_fn: Optional[AttnFn], ranks: Ranks) -> torch.Tensor:
+    """``forward`` up to the head's output in ``cfg.dtype``, gathered over
+    'tp', with no span. Each layer's weights are cast inside the layer
+    loop, so one layer's copy in ``cfg.dtype`` is live at a time, and the
+    head's after the layers. On weights in ``cfg.dtype`` already (the
+    embedding aside) and one rank, it casts no weight and calls no
+    collective, so a CUDA graph can hold all of it."""
     x, positions = _inputs(params["embed"], tokens, cfg, ranks)
     # One unbind per stacked leaf: its backward stacks the layers' grads
     # once, where indexing w[i] would add a zero-filled gradient of the
     # whole stack for every layer.
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
-    weights = (dict(zip(layers, _cast([ws[i] for ws in layers.values()],
-                                      cfg.dtype, tokens)))
+    weights = ({name: _cast(ws[i], cfg.dtype) for name, ws in layers.items()}
                for i in range(cfg.n_layers))
     x = _layers(cfg, x, positions, weights, attn_fn, ranks.tp, _feed_forward)
-    norm, head_w = _cast([params["final_norm"], params["lm_head"]],
-                         cfg.dtype, tokens)
-    head = _head(cfg, x, norm, head_w, ranks.tp)
-    return pf.gather_from(head, ranks.tp).float()
+    head = _head(cfg, x, _cast(params["final_norm"], cfg.dtype),
+                 _cast(params["lm_head"], cfg.dtype), ranks.tp)
+    return pf.gather_from(head, ranks.tp)
 
 
-def _dense_forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
-                   attn_fn: Optional[AttnFn]) -> torch.Tensor:
-    """``_forward`` on one rank for a dense config whose weights, the
-    embedding aside, are in ``cfg.dtype`` already, up to the LM head's
-    product in ``cfg.dtype``: the same pieces, so the same kernels in the
-    same order, with no span and no weight cast, so a CUDA graph can hold
-    all of it."""
-    x, positions = _inputs(params["embed"], tokens, cfg, Ranks())
-    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
-    weights = (dict(zip(layers, ws)) for ws in zip(*layers.values()))
-    x = _layers(cfg, x, positions, weights, attn_fn, None, _mlp)
-    return _head(cfg, x, params["final_norm"], params["lm_head"], None)
+def _cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``w`` in ``dtype``. A weight in ``dtype`` already, as a served
+    model's are, is returned without a call into ``to``: the 160 such
+    calls of a Mixtral request took 0.15-0.37 ms of the host of an H100
+    machine."""
+    return w if w.dtype == dtype else w.to(dtype)
 
 
 def _inputs(table: torch.Tensor, tokens: torch.Tensor, cfg: LlamaConfig,
@@ -510,59 +475,27 @@ class _Graph:
 
 class _Graphs:
     """A model's graphs by prompt shape, captured on ``weights`` (their
-    ``data_ptr``s) into one memory pool, least recently replayed first:
-    at most ``GRAPHS`` of them, whose logits fill at most ``budget``
-    bytes; the shapes lately served without one (``SEEN`` at most); and
-    how many replays and captures there have been."""
+    ``data_ptr``s) into one memory pool and kept while the weights are:
+    at most ``GRAPHS``, whose logits fill at most ``budget`` bytes."""
 
     def __init__(self, budget: int, weights: tuple):
         self.budget = budget
         self.weights = weights
         self.pool = None
-        self.graphs: "collections.OrderedDict[tuple, _Graph]" = \
-            collections.OrderedDict()
-        self.seen: "collections.OrderedDict[tuple, None]" = \
-            collections.OrderedDict()
-        self.replays = 0
-        self.captures = 0
+        self.graphs: Dict[tuple, _Graph] = {}
 
     def held(self) -> int:
         """The bytes of the graphs' logits."""
         return sum(g.logits.nbytes for g in self.graphs.values())
 
-    def replay(self, key: tuple) -> Optional[_Graph]:
-        """``key``'s graph, now the most recently replayed, or None."""
-        g = self.graphs.get(key)
-        if g is not None:
-            self.graphs.move_to_end(key)
-            self.replays += 1
-        return g
-
     def admit(self, key: tuple, nbytes: int) -> bool:
         """Whether to capture ``key``'s shape, whose logits take
-        ``nbytes``, after a call served without a graph. Yes on its first
-        call while there is room. Else on its second, while the graphs
-        have been replayed ``REPAID`` times for each capture, the least
-        recently replayed going to make room: captures then cost at most
-        a share of what replays save, whatever the shapes. Logits larger
-        than the budget alone are never captured."""
-        if key in self.graphs or nbytes > self.budget:
-            return False
-        if len(self.graphs) >= GRAPHS \
-                or self.held() + nbytes > self.budget:
-            if key not in self.seen:
-                self.seen[key] = None
-                if len(self.seen) > SEEN:
-                    self.seen.popitem(last=False)
-                return False
-            if self.replays < REPAID * self.captures:
-                return False
-        self.seen.pop(key, None)
-        while len(self.graphs) >= GRAPHS \
-                or self.held() + nbytes > self.budget:
-            self.graphs.popitem(last=False)
-        self.captures += 1
-        return True
+        ``nbytes``, after a call served without a graph: while fewer than
+        ``GRAPHS`` are held and the logits fit in the budget beside
+        theirs. No graph is evicted, so once the graphs are full every
+        shape without one is served eagerly."""
+        return key not in self.graphs and len(self.graphs) < GRAPHS \
+            and self.held() + nbytes <= self.budget
 
 
 class LlamaModel(nn.Module):
@@ -575,11 +508,14 @@ class LlamaModel(nn.Module):
     the logits of ``forward`` on the params given.
 
     On CUDA a dense model replays a prompt shape's forward from a CUDA
-    graph once the shape is captured (the module's docstring says when,
-    and how many graphs a model holds). Calls that share a model are
-    enqueued one at a time; on one stream, as the default stream is, each
-    reads its graph's logits before the next replay writes them. Weights
-    moved or replaced (not loaded in place) drop the graphs.
+    graph once the shape is captured, after its first call, while there
+    is room; at most ``GRAPHS`` are captured in the model's life, so a
+    server whose first shapes fill them serves later shapes eagerly (the
+    module's docstring says which traffic that leaves out). Calls that
+    share a model are enqueued one at a time; on one stream, as the
+    default stream is, each reads its graph's logits before the next
+    replay writes them. Weights moved or replaced (not loaded in place)
+    drop the graphs.
     """
 
     def __init__(self, cfg: LlamaConfig, params: Params,
@@ -621,7 +557,7 @@ class LlamaModel(nn.Module):
                 self._graphs = _Graphs(int(total * GRAPH_MEMORY_SHARE),
                                        weights)
             graphs = self._graphs
-            g = graphs.replay(key)
+            g = graphs.graphs.get(key)
         if g is None:
             logits = forward(self.params(), tokens, self.cfg, self.attn_fn)
             nbytes = tokens.numel() * self.cfg.vocab_size \
@@ -640,7 +576,7 @@ class LlamaModel(nn.Module):
         return logits
 
     def _capture(self, tokens: torch.Tensor, graphs: _Graphs) -> _Graph:
-        """Captures ``_dense_forward`` for ``tokens``' shape into
+        """Captures ``_forward`` on one rank for ``tokens``' shape into
         ``graphs``' pool, on a copy of the tokens held outside it. K1 does
         not count the launches it makes while captured."""
         with torch.inference_mode(False):
@@ -652,5 +588,5 @@ class LlamaModel(nn.Module):
         # thread_local: another thread's CUDA calls do not break a capture
         with torch.cuda.graph(graph, pool=graphs.pool,
                               capture_error_mode="thread_local"):
-            out = _dense_forward(params, static, self.cfg, self.attn_fn)
+            out = _forward(params, static, self.cfg, self.attn_fn, Ranks())
         return _Graph(graph, static, out)

@@ -23,10 +23,11 @@ over the RPC fabric itself so a remote ``Channel`` can scrape any node
 (:mod:`brpc_tpu_torch.obs.status_service`).
 
 The switch lives in :mod:`~brpc_tpu_torch.obs.rpcz`, re-exported here.
-The model path (``models/llama.py``: ``llama.forward``, ``llama.cast``,
-``train.forward`` / ``backward`` / ``optimizer``) has a second gate: its
-spans are recorded only while a ``torch.profiler`` session runs in the
-process and :func:`enabled` holds.  Otherwise each of its hooks reads two
+The model path (``models/llama.py``: ``llama.forward``,
+``train.forward`` / ``backward`` / ``optimizer``; ``models/moe.py``:
+``moe.*``) has a second gate: its spans are recorded only while a
+``torch.profiler`` session runs in the process and :func:`enabled`
+holds.  Otherwise each of its hooks reads two
 flags and makes nothing.  While the profiler runs, every span also goes to an
 unbounded capture store beside the lossy ring, which
 ``rpcz.captured(start_ns, end_ns, kernels)`` returns, marked spans with

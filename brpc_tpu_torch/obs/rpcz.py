@@ -419,10 +419,10 @@ def trace(service: str, method: str, mark=None):
     while the program is traced (observability on and ``profiling()``);
     otherwise a shared null context whose ``as`` target is None::
 
-        with rpcz.trace("llama", "cast", mark=x) as sp:
+        with rpcz.trace("moe", "experts", mark=x) as sp:
             ...
             if sp is not None:
-                sp.count("bytes", n)
+                sp.count("kernels", n)
     """
     if not (_enabled and profiling()):
         return _UNTRACED

@@ -3,12 +3,13 @@
 On the CPU: the model serves ``forward`` as it is and captures nothing;
 the graph path's rule (CUDA, a dense config, no weight that requires
 grad), so an expert config never takes it; the graph's body,
-``_dense_forward``, gives ``forward``'s logits bit for bit before their
-f32 cast; a span of a call that replayed nothing counts no ``graph``;
-and the rule of which shapes are captured (``_Graphs``), driven as the
-model drives it: first calls while there is room, second calls once
-replays have paid for the captures, never more than ``GRAPHS`` graphs or
-their budget of bytes, whatever lengths the prompts have.
+``_forward`` on the model's weights, gives ``forward``'s logits bit for
+bit before their f32 cast; a span of a call that replayed nothing counts
+no ``graph``; and the rule of which shapes are captured (``_Graphs``),
+driven as the model drives it: first calls while there is room, every
+other shape eagerly, no held graph dropped or replaced, and never more
+than ``GRAPHS`` captures or their budget of bytes, whatever lengths the
+prompts have.
 
 On the card (``cuda``): replayed logits bit-equal to the first, eager
 call's and to ``forward``'s, at a tiny width and at Mistral-7B's widths
@@ -18,7 +19,7 @@ launches counted in eager calls only, a trace of a replay showing them;
 weights loaded in place read by the replay and weights replaced dropping
 the graphs; nothing read back to the host in a replay; a traced replay's
 span holding as many device operations as an eager call's; and prompts
-of many lengths keeping the graphs and the card's reserved memory
+of many lengths keeping the captures and the card's reserved memory
 bounded.
 """
 
@@ -32,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 from brpc_tpu_torch.models import llama
 from brpc_tpu_torch.obs import rpcz
 from brpc_tpu_torch.ops import flash_attention as fa
+from brpc_tpu_torch.parallel.mesh import Ranks
 
 #: Mistral-7B-v0.3's widths with two of its 32 layers
 MISTRAL_L2 = llama.LlamaConfig(vocab_size=32768, hidden=4096, n_layers=2,
@@ -99,7 +101,8 @@ def test_the_graph_body_gives_forward_s_logits_bit_for_bit(dtype, attn):
     for shape in ((1, 32), (2, 64)):
         tokens = _tokens(cfg, shape, seed=shape[1])
         tokens[0, :3] = torch.tensor([-1, cfg.vocab_size, -cfg.vocab_size])
-        head = llama._dense_forward(model.params(), tokens, cfg, attn_fn)
+        head = llama._forward(model.params(), tokens, cfg, attn_fn,
+                              Ranks())
         assert head.dtype == dtype
         torch.testing.assert_close(
             head.float(), llama.forward(model.params(), tokens, cfg,
@@ -132,7 +135,7 @@ class _Logits:
 def _serve(graphs, key, nbytes) -> str:
     """One call as ``LlamaModel.forward`` makes it: 'replay', 'capture'
     (served without a graph, then captured) or 'eager'."""
-    if graphs.replay(key) is not None:
+    if key in graphs.graphs:
         return "replay"
     if graphs.admit(key, nbytes):
         graphs.graphs[key] = llama._Graph(None, None, _Logits(nbytes))
@@ -143,33 +146,43 @@ def _serve(graphs, key, nbytes) -> str:
 def _bounded(graphs):
     assert len(graphs.graphs) <= llama.GRAPHS
     assert graphs.held() <= graphs.budget
-    assert len(graphs.seen) <= llama.SEEN
+
+
+def _kept(graphs, held: dict) -> bool:
+    """Whether ``graphs`` holds exactly the graphs of ``held``, each the
+    same object."""
+    return graphs.graphs.keys() == held.keys() and all(
+        graphs.graphs[key] is g for key, g in held.items())
 
 
 def test_first_calls_are_captured_while_there_is_room():
     graphs = llama._Graphs(budget=10 * llama.GRAPHS, weights=())
     got = [_serve(graphs, (1, t), 10) for t in range(llama.GRAPHS + 2)]
     assert got == ["capture"] * llama.GRAPHS + ["eager"] * 2
-    for _ in range(llama.REPAID):
+    held = dict(graphs.graphs)
+    # once the graphs are full, the shapes left out are served eagerly on
+    # every call, however often they come, and no held graph changes
+    for _ in range(8):
         assert [_serve(graphs, (1, t), 10)
-                for t in range(llama.GRAPHS)] == ["replay"] * llama.GRAPHS
-    # a shape seen once before, now with replays enough to pay for it:
-    # captured on its second call, in the place of the least recent graph
-    assert _serve(graphs, (1, llama.GRAPHS), 10) == "capture"
-    assert (1, 0) not in graphs.graphs and len(graphs.graphs) == llama.GRAPHS
+                for t in range(llama.GRAPHS + 2)] == \
+            ["replay"] * llama.GRAPHS + ["eager"] * 2
+    assert _kept(graphs, held)
     _bounded(graphs)
 
 
 def test_the_budget_of_bytes_bounds_the_graphs():
     graphs = llama._Graphs(budget=100, weights=())
+    assert _serve(graphs, (1, 99), 101) == "eager"  # alone over the budget
     assert [_serve(graphs, (1, t), 40) for t in range(3)] == \
         ["capture", "capture", "eager"]
-    assert _serve(graphs, (1, 99), 101) == "eager"  # alone over the budget
-    assert _serve(graphs, (1, 99), 101) == "eager"
-    for _ in range(2 * llama.REPAID):
-        _serve(graphs, (1, 0), 40)
-    assert _serve(graphs, (1, 2), 40) == "capture"  # its second call
-    assert list(graphs.graphs) == [(1, 0), (1, 2)]  # (1, 1) least recent
+    assert _serve(graphs, (1, 98), 20) == "capture"  # fits beside them
+    held = dict(graphs.graphs)
+    for _ in range(8):
+        assert [_serve(graphs, (1, t), 40) for t in range(3)] == \
+            ["replay", "replay", "eager"]
+        assert _serve(graphs, (1, 99), 101) == "eager"
+    assert list(graphs.graphs) == [(1, 0), (1, 1), (1, 98)]
+    assert _kept(graphs, held)
     _bounded(graphs)
 
 
@@ -178,12 +191,12 @@ def test_many_lengths_keep_the_graphs_and_their_captures_bounded(traffic):
     """Prompts of lengths that never repeat, that repeat now and then (a
     chat mix's classes jittered by up to 64 tokens), or that cycle through
     more shapes than the model holds: the graphs stay within their count
-    and bytes, and captures past the first ``GRAPHS`` need ``REPAID``
-    replays each."""
+    and bytes, no graph is dropped or replaced, and there are never more
+    than ``GRAPHS`` captures."""
     import random
     rng = random.Random(0)
     graphs = llama._Graphs(budget=64 << 20, weights=())
-    calls = []
+    calls, held = [], {}
     for i in range(5000):
         if traffic == "distinct":
             t = 512 + i
@@ -193,10 +206,12 @@ def test_many_lengths_keep_the_graphs_and_their_captures_bounded(traffic):
         else:
             t = 128 * (1 + i % (2 * llama.GRAPHS))
         calls.append(_serve(graphs, (1, t), t * 1024))
+        if calls[-1] == "capture":
+            held[(1, t)] = graphs.graphs[(1, t)]
+        assert _kept(graphs, held)
         _bounded(graphs)
     captures, replays = calls.count("capture"), calls.count("replay")
-    assert captures == graphs.captures and replays == graphs.replays
-    assert captures <= llama.GRAPHS + replays // llama.REPAID + 1
+    assert captures == len(graphs.graphs) <= llama.GRAPHS
     if traffic == "distinct":
         assert captures == llama.GRAPHS and replays == 0
 
@@ -355,15 +370,15 @@ def test_a_traced_replay_holds_the_eager_call_s_device_operations():
 @pytest.mark.cuda
 def test_many_lengths_keep_the_card_s_graphs_and_memory_bounded():
     """Prompts of 40 lengths up to 5120, each served twice a time, among
-    four lengths served often: the model holds at most ``GRAPHS`` graphs
-    within their budget, captures more than that in all, and the card's
-    memory reserved once every length has been served grows no further
-    than the largest shape's logits."""
+    four lengths served often: the model captures ``GRAPHS`` of the
+    lengths and no more, within their budget, keeps every graph it
+    captured unchanged, and the card's memory reserved once every length
+    has been served grows no further than the largest shape's logits."""
     device = _card()
     cfg = MISTRAL_L2
     model = _model(cfg, device)
     hot = [_tokens(cfg, (1, 256 * k), device) for k in (1, 2, 3, 4)]
-    reserved = []
+    reserved, held = [], {}
     with torch.inference_mode():
         for r in range(10):
             for i in range(8):
@@ -372,11 +387,17 @@ def test_many_lengths_keep_the_card_s_graphs_and_memory_bounded():
                 t = 128 * (1 + (8 * r + i) % 40)
                 for _ in range(2):
                     model(_tokens(cfg, (1, t), device, seed=t))
+                graphs = model._graphs
+                # every graph captured so far is still held, unchanged
+                assert all(graphs.graphs.get(key) is g
+                           for key, g in held.items())
+                held.update(graphs.graphs)
             torch.cuda.synchronize(device)
-            graphs = model._graphs
-            assert len(graphs.graphs) <= llama.GRAPHS
+            assert len(held) <= llama.GRAPHS
             assert graphs.held() <= graphs.budget
             reserved.append(torch.cuda.memory_reserved(device))
-    assert graphs.captures > llama.GRAPHS, graphs.captures
+    # the first 32 lengths' logits fit the budget: the cache is full and
+    # the 8 longest lengths were served eagerly on every call
+    assert len(held) == llama.GRAPHS, sorted(held)
     largest = 5120 * cfg.vocab_size * cfg.dtype.itemsize
-    assert reserved[-1] <= reserved[4] + largest, (reserved, graphs.captures)
+    assert reserved[-1] <= reserved[4] + largest, reserved

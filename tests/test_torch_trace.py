@@ -1,14 +1,12 @@
 """The port's spans: ``obs.rpcz`` ids, clock and capture store, and the
-model path's spans (``llama.forward``, ``llama.cast``, ``train.*``).
+model path's spans (``llama.forward``, ``train.*``).
 
-Every case but the last two runs on the CPU with ``torch.profiler``
-started for CPU activity; the last two (``cuda``) hold the functional
-path's cast spans to the weight casts' kernels on the card, and a served
-request to no weight cast at all.
+Every case but the last runs on the CPU with ``torch.profiler`` started
+for CPU activity; the last (``cuda``) holds a served request to no weight
+cast at all on the card.
 """
 
 import dataclasses
-import math
 import time
 
 import pytest
@@ -86,31 +84,18 @@ def test_observability_off_records_nothing_under_the_profiler():
 
 
 def test_forward_records_its_span_and_one_cast_span_a_layer_and_the_head():
+    """The functional ``forward`` on f32 weights casts each layer's
+    weights and the head's inside its one ``llama.forward`` span, and
+    records no other span."""
     cfg, params, tokens = _model_and_tokens()
+    assert params["lm_head"].dtype == torch.float32 != cfg.dtype
     _, spans, start, end = _traced(lambda: llama.forward(params, tokens,
                                                          cfg))
-    forward = [s for s in spans if s.name == "llama.forward"]
-    casts = [s for s in spans if s.name == "llama.cast"]
-    assert len(forward) == 1 and len(spans) == cfg.n_layers + 2
-    root = forward[0]
+    (root,) = spans
+    assert root.name == "llama.forward" and root.counts == {}
     assert root.parent_id == 0 and root.trace_id != root.span_id
-    assert len(casts) == cfg.n_layers + 1
-    for s in casts:
-        assert (s.trace_id, s.parent_id) == (root.trace_id, root.span_id)
-        assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
     assert start <= root.start_ns <= root.end_ns <= end
-    assert len({s.span_id for s in spans}) == len(spans)
-    # every weight but the embedding is cast, 4 bytes read and 2 written
-    shapes = llama.param_shapes(cfg)
-    cast = [*shapes["layers"].values(), shapes["final_norm"],
-            shapes["lm_head"]]
-    assert sum(s.counts["bytes"] for s in casts) == \
-        6 * sum(math.prod(shape) for shape in cast)
-    assert [s.counts["bytes"] for s in casts[:-1]] == \
-        [casts[0].counts["bytes"]] * cfg.n_layers
-    assert [s.counts["kernels"] for s in casts] == [9] * cfg.n_layers + [2]
-    assert all(s.device is None and s.device_start_ns is None
-               for s in spans)  # no device interval on the CPU
+    assert root.device is None and root.device_start_ns is None  # the CPU
 
 
 def test_a_served_call_records_its_span_and_casts_nothing():
@@ -128,8 +113,7 @@ def test_train_step_holds_forward_backward_and_optimizer_in_order():
     for s in spans:
         by_name.setdefault(s.name, []).append(s)
     assert set(by_name) == {"train.forward", "train.backward",
-                            "train.optimizer", "llama.forward",
-                            "llama.cast"}
+                            "train.optimizer", "llama.forward"}
     phases = [by_name[f"train.{p}"][0]
               for p in ("forward", "backward", "optimizer")]
     assert all(len(by_name[s.name]) == 1 for s in phases)
@@ -243,7 +227,7 @@ def test_marked_spans_lie_between_their_marker_kernels(monkeypatch):
         with rpcz.trace("llama", "forward", mark=_Marked()):
             for n in (1, 0):
                 # counts the kernels it launches: no marker at its end
-                with rpcz.trace("llama", "cast", mark=_Marked()) as sp:
+                with rpcz.trace("moe", "experts", mark=_Marked()) as sp:
                     sp.count("kernels", n)
         device[0] = 1
         with rpcz.trace("train", "optimizer", mark=_Marked()):
@@ -268,13 +252,13 @@ def test_marked_spans_lie_between_their_marker_kernels(monkeypatch):
                (1, marker, at(5), at(6)), (1, "adam", at(6), at(9)),
                (1, marker, at(9), at(10))]
     got = {s.span_id: s for s in rpcz.captured(start, end, kernels)}
-    cast1, cast2, forward, opt, step = [got[s.span_id] for s in spans]
-    assert (forward.name, cast1.name, opt.name, step.name) == (
-        "llama.forward", "llama.cast", "train.optimizer", "train.step")
+    moe1, moe2, forward, opt, step = [got[s.span_id] for s in spans]
+    assert (forward.name, moe1.name, opt.name, step.name) == (
+        "llama.forward", "moe.experts", "train.optimizer", "train.step")
     assert (forward.device_start_ns, forward.device_end_ns) == (at(2),
                                                                 at(60))
-    assert (cast1.device_start_ns, cast1.device_end_ns) == (at(12), at(20))
-    assert (cast2.device_start_ns, cast2.device_end_ns) == (at(32), at(32))
+    assert (moe1.device_start_ns, moe1.device_end_ns) == (at(12), at(20))
+    assert (moe2.device_start_ns, moe2.device_end_ns) == (at(32), at(32))
     assert (opt.device, opt.device_start_ns, opt.device_end_ns) == (
         1, at(6), at(9))
     assert step.device is None and step.device_start_ns is None
@@ -283,15 +267,15 @@ def test_marked_spans_lie_between_their_marker_kernels(monkeypatch):
     # one, gets no interval
     rpcz.captured(start, end, kernels[1:])
     assert forward.device_start_ns is None
-    assert (cast1.device_start_ns, cast1.device_end_ns) == (at(12), at(20))
+    assert (moe1.device_start_ns, moe1.device_end_ns) == (at(12), at(20))
     # a counted span whose kernels run into the next marker gets none
     rpcz.captured(start, end, kernels[:2] + kernels[3:])
-    assert cast1.device_start_ns is None
-    assert (cast2.device_start_ns, forward.device_end_ns) == (at(32),
-                                                              at(60))
+    assert moe1.device_start_ns is None
+    assert (moe2.device_start_ns, forward.device_end_ns) == (at(32),
+                                                             at(60))
     # a marker the program did not launch: card 0 gets nothing
     rpcz.captured(start, end, kernels + [(0, marker, at(70), at(71))])
-    assert cast1.device_start_ns is None and cast2.device_end_ns is None
+    assert moe1.device_start_ns is None and moe2.device_end_ns is None
     assert opt.device_start_ns == at(6)
 
 
@@ -350,21 +334,6 @@ def inside(s, ops) -> list:
             <= s.device_end_ns]
 
 
-def cast_kernels(serve, tokens):
-    """One traced call of ``serve`` on the card. Returns the number of
-    device operations that belong to each ``llama.cast`` span in order,
-    those among them that are not weight casts, and the weight casts that
-    belong to none."""
-    spans, ops = card_trace(serve, tokens)
-    casts = [s for s in spans if s.name == "llama.cast"]
-    owned = [inside(s, ops) for s in casts]
-    foreign = [(i, name) for i, found in enumerate(owned)
-               for _, name, cast in found if not cast]
-    mine = {id(op) for found in owned for op in found}
-    outside = [op[1] for op in ops if op[2] and id(op) not in mine]
-    return [len(found) for found in owned], foreign, outside
-
-
 def _card_model_and_forward():
     from brpc_tpu_torch.ops.flash_attention import flash_attention
 
@@ -378,16 +347,6 @@ def _card_model_and_forward():
         model(tokens)  # builds and loads the kernel
         functional(tokens)
     return cfg, model, functional, tokens
-
-
-@pytest.mark.cuda
-def test_cast_spans_hold_the_weight_casts_and_nothing_else_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    cfg, _, functional, tokens = _card_model_and_forward()
-    counts, foreign, outside = cast_kernels(functional, tokens)
-    assert counts == [9] * cfg.n_layers + [2]
-    assert foreign == [] and outside == []
 
 
 @pytest.mark.cuda
