@@ -1,5 +1,5 @@
-// Forward flash attention for Hopper (sm_90a): two tensor-core kernels,
-// one for bf16 and one for f32.
+// Flash attention for Hopper (sm_90a): two tensor-core forward kernels,
+// one for bf16 and one for f32, and a bf16 backward.
 //
 // Replaces the Pallas kernel of brpc_tpu/ops/flash_attention.py
 // (`_kernel`, launched by `flash_attention` through `pl.pallas_call`) and
@@ -91,6 +91,43 @@
 // chains; see the loop). Shared memory at D=128: 64 KB of Q and 128 KB of
 // K/V ring; no round trip of the scores. The output is written from the
 // registers as float2, rows >= T dropped.
+
+// bf16 backward (training). The reference kernel has none: its training
+// differentiates dense attention, which writes the T x T scores and
+// probabilities in f32 and reads them back in the backward. This one
+// recomputes them from the forward's log-sum-exp, which
+// flash_fwd_lse_wgmma_kernel (the forward's body with one more store)
+// writes a row: P = exp(S * D^-0.5 - lse). Bound on the H100 SXM: the
+// backward's own 8*B*Hq*D model operations a kept pair (dV, dP, dK, dQ)
+// at 989 TFLOP/s; at the train cell's shape (2, 2048, 32/32, 128) they
+// bound it, far above its bytes. It does more: S and dP are computed twice
+// (once for dK/dV, once for dQ), 14*D a pair, which is the price of no
+// atomics and no f32 dQ scratch; so at best it reaches 8/14 of the bound.
+// Three kernels on the stream:
+//   flash_bwd_dot_kernel: delta = rowsum(dO * O) in f32, one warp a row.
+//   flash_bwd_dkdv_kernel: one block of two warpgroups per (128 keys, KV
+//     head, batch row), lowest keys (most causal work) first; each
+//     warpgroup owns 64 keys and keeps dK and dV in f32 registers. Thread
+//     0 loads the K and V tiles once, then streams (query head, 64-row
+//     query tile) pairs: Q, dO and their lse and delta (1-D bulk copies)
+//     into a three-stage ring with full and empty mbarriers, for every
+//     query head of the KV head's group (so GQA's dK/dV are summed in
+//     registers) and the query tiles at or past the diagonal. Per tile:
+//     S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, K-major operands in
+//     the 128-byte swizzle TMA writes); P^T from the lse; dV += P^T dO
+//     (P^T as a bf16 A fragment in registers, dO N-major); dS^T = P^T
+//     (dP^T - delta); dK += dS^T Q. Then dK * D^-0.5 and dV are staged in
+//     the warpgroup's own K and V rows and written by TMA stores.
+//   flash_bwd_dq_kernel: one block of two warpgroups per (128 query rows,
+//     query head, batch row), heaviest first; Q and dO loaded once, 64-row
+//     K/V tiles up to the diagonal streamed through a three-stage ring.
+//     Per tile: S = Q K^T, dP = dO V^T, P, dS = P (dP - delta), dQ += dS K.
+// P and dS enter their products as bf16 (one rounding each); every sum is
+// f32; nothing is summed across blocks, so the result is deterministic.
+// No producer warpgroup: with 384 threads ptxas caps every thread at 168
+// registers, and dK and dV alone take 128 a thread at D=128 (the dK/dV
+// kernel uses 234 of the 255 that 256 threads allow, without spills).
+// Only tiles that cross the diagonal or T are masked (p = 0 by select).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -568,13 +605,39 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
-                           const __grid_constant__ CUtensorMap tm_k,
-                           const __grid_constant__ CUtensorMap tm_v,
-                           const __grid_constant__ CUtensorMap tm_o, int seq,
-                           int group, int causal, float scale_log2) {
+// A 64-row accumulator into 64 rows of a tile at `rows` (1024-aligned,
+// atoms `atom_bytes` apart) in Tile<D>'s swizzle, each register x rounded
+// to bf16 as f(x, half); register i holds row r0 + 8 * half, half =
+// (i / 2) % 2, column 8 * (i / 4) + cq + i % 2.
+template <int D, typename F>
+__device__ __forceinline__ void stage_rows(const float (&acc)[D / 2], F f,
+                                           uint32_t rows, int atom_bytes,
+                                           int r0, int cq) {
+  using G = Tile<D>;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int half = (i / 2) % 2;
+    const int col = 8 * (i / 4) + cq;
+    const uint32_t bits = bf16x2_bits(
+        __floats2bfloat162_rn(f(acc[i], half), f(acc[i + 1], half)));
+    uint32_t off = (r0 + 8 * half) * G::kSwizzle + 2 * (col % G::kAtom);
+    off ^= ((off >> 7) & (G::kSwizzle / 16 - 1)) << 4;
+    st_shared_u32(rows + (col / G::kAtom) * atom_bytes + off, bits);
+  }
+}
+
+// The kernel's body; with kLse it also writes each query row's
+// log-sum-exp of the scaled scores, ln(sum_j exp(s_j * D^-0.5)), f32, into
+// lse[(b * Hq + h) * ld + row] for every row of the block's tile (rows past
+// T read zero queries and give finite values), for the backward.
+template <int D, bool kLse>
+__device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q,
+                                         const CUtensorMap& tm_k,
+                                         const CUtensorMap& tm_v,
+                                         const CUtensorMap& tm_o, int seq,
+                                         int group, int causal,
+                                         float scale_log2, float* lse,
+                                         int ld) {
   using G = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -810,18 +873,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
       l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
       l[j] = fmaxf(l[j], 1e-20f);
+      if constexpr (kLse) {
+        if (cq == 0)
+          lse[(int64_t(b) * gridDim.y + h) * ld + row0 + 8 * j] =
+              (m[j] * scale_log2 + log2f(l[j])) * 0.6931471805599453f;
+      }
     }
     named_barrier(1 + w, 128);  // every warp's last product read Q
-#pragma unroll
-    for (int i = 0; i < D / 2; i += 2) {
-      const int half = (i / 2) % 2;
-      const int col = 8 * (i / 4) + cq;
-      const uint32_t bits = bf16x2_bits(
-          __floats2bfloat162_rn(acc[i] / l[half], acc[i + 1] / l[half]));
-      uint32_t off = (r0 + 8 * half) * G::kSwizzle + 2 * (col % G::kAtom);
-      off ^= ((off >> 7) & (G::kSwizzle / 16 - 1)) << 4;
-      st_shared_u32(q_mine + (col / G::kAtom) * G::kQAtomBytes + off, bits);
-    }
+    stage_rows<D>(acc, [&](float x, int half) { return x / l[half]; },
+                  q_mine, G::kQAtomBytes, r0, cq);
     fence_proxy_async();
     named_barrier(1 + w, 128);
     if (t == 0 && first_row < seq) {
@@ -831,6 +891,31 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_store_commit_and_wait();
     }
   }
+}
+
+// Serving: the output alone.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_o, int seq,
+                           int group, int causal, float scale_log2) {
+  fwd_body<D, false>(tm_q, tm_k, tm_v, tm_o, seq, group, causal, scale_log2,
+                     nullptr, 0);
+}
+
+// Training: the output and each row's log-sum-exp.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_lse_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const __grid_constant__ CUtensorMap tm_o,
+                               int seq, int group, int causal,
+                               float scale_log2, float* lse, int ld) {
+  fwd_body<D, true>(tm_q, tm_k, tm_v, tm_o, seq, group, causal, scale_log2,
+                    lse, ld);
 }
 
 // A map of a contiguous bf16 [B,T,H,D] tensor whose box is `rows` positions
@@ -843,9 +928,11 @@ bool encode(CUtensorMap* map, const void* ptr, int b, int seq, int heads,
                     heads, D, G::kAtom, rows, G::kSwizzle);
 }
 
+// With `lse` null the serving kernel, else the one that also writes the
+// log-sum-exp, [B, Hq, ld] f32 with ld = T rounded up to 128.
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     int b, int seq, int hq, int hkv, int causal,
+                     float* lse, int b, int seq, int hq, int hkv, int causal,
                      cudaStream_t stream) {
   // TMA reads and writes 16-byte aligned tensors.
   if ((uintptr_t(q) | uintptr_t(k) | uintptr_t(v) | uintptr_t(o)) % 16)
@@ -857,31 +944,539 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
       !encode<D>(&tm_o, o, b, seq, hq, 64))
     return cudaErrorInvalidValue;
   constexpr int smem = Tile<D>::kSmem;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBQ - 1) / kBQ, hq, b);
   const float scale_log2 = float(1.4426950408889634 / sqrt(double(D)));
-  flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, tm_o, seq, hq / hkv, causal, scale_log2);
+  if (lse == nullptr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+        tm_q, tm_k, tm_v, tm_o, seq, hq / hkv, causal, scale_log2);
+  } else {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_lse_wgmma_kernel<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    flash_fwd_lse_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+        tm_q, tm_k, tm_v, tm_o, seq, hq / hkv, causal, scale_log2, lse,
+        (seq + kBQ - 1) / kBQ * kBQ);
+  }
   return cudaGetLastError();
 }
 
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int seq, int hq, int hkv, int d, int causal, void* stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int seq, int hq, int hkv, int d, int causal, void* stream) {
   if (b <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0)
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 32: return int(launch_d<32>(q, k, v, o, b, seq, hq, hkv, causal, s));
-    case 64: return int(launch_d<64>(q, k, v, o, b, seq, hq, hkv, causal, s));
-    case 128: return int(launch_d<128>(q, k, v, o, b, seq, hq, hkv, causal, s));
+    case 32:
+      return int(launch_d<32>(q, k, v, o, lse, b, seq, hq, hkv, causal, s));
+    case 64:
+      return int(launch_d<64>(q, k, v, o, lse, b, seq, hq, hkv, causal, s));
+    case 128:
+      return int(launch_d<128>(q, k, v, o, lse, b, seq, hq, hkv, causal, s));
     default: return int(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace wg
+
+// ---- bf16 backward: wgmma and TMA ------------------------------------------
+
+namespace bwd {
+
+using namespace hopper;
+
+constexpr int kThreads = 256;  // two warpgroups compute; thread 0 also loads
+constexpr int kStages = 3;     // streamed tiles in flight
+constexpr int kKV = 128;       // key rows of a dK/dV block, 64 a warpgroup
+constexpr int kQ = 128;        // query rows of a dQ block, 64 a warpgroup
+constexpr int kBM = 64;        // query rows of a tile the dK/dV kernel streams
+constexpr int kBN = 64;        // key rows of a K/V tile the dQ kernel streams
+constexpr float kLog2e = 1.4426950408889634f;
+
+// A tile of `kRows` rows of a [B,T,H,D] bf16 tensor as TMA writes it: D / 64
+// atoms side by side, each [kRows][64] in the 128-byte swizzle.
+template <int D, int kRows>
+struct Tile {
+  static_assert(D == 64 || D == 128, "D must be 64 or 128");
+  static constexpr int kAtomBytes = kRows * 128;
+  static constexpr int kBytes = D / 64 * kAtomBytes;
+  // The k16 step `kk` over the head dim of 64 rows at `rows` (K-major:
+  // A of S, dP; B of S, dP).
+  static __device__ __forceinline__ uint64_t k_major(uint32_t rows, int kk) {
+    return smem_desc(rows + kk * 16 / 64 * kAtomBytes + 2 * (kk * 16 % 64),
+                     16, 1024, 1);
+  }
+  // The k16 step `kk` over the tile's rows, the head dim as N (N-major: B
+  // of the products into dQ, dK and dV).
+  static __device__ __forceinline__ uint64_t n_major(uint32_t tile, int kk) {
+    return smem_desc(tile + kk * 16 * 128, kAtomBytes, 1024, 1);
+  }
+};
+
+// A fragments of the four k16 steps of a 64 x 64 accumulator, rounded to
+// bf16.
+__device__ __forceinline__ void to_a(const float (&x)[32],
+                                     uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = wg::bf16x2_bits(
+          __floats2bfloat162_rn(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]));
+}
+
+// delta[(b * Hq + h) * ld + t] = sum_d dO * O in f32 for t < T, 0 for T <=
+// t < ld. One warp a row.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_dot_kernel(const __nv_bfloat16* __restrict__ o,
+                         const __nv_bfloat16* __restrict__ dout,
+                         float* __restrict__ delta, int seq, int ld, int hq,
+                         int rows) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const int t = row % ld, bh = row / ld, h = bh % hq, b = bh / hq;
+  float sum = 0.f;
+  if (t < seq) {
+    const int64_t at = ((int64_t(b) * seq + t) * hq + h) * D;
+#pragma unroll
+    for (int c = 2 * lane; c < D; c += 64) {
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(o + at + c));
+      const float2 y = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(dout + at + c));
+      sum += x.x * y.x + x.y * y.y;
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  }
+  if (lane == 0) delta[row] = sum;
+}
+
+// dK and dV of 128 keys of one KV head (64 a warpgroup), summed over the
+// query heads of its group and the query tiles of kBM rows at or past the
+// diagonal, in registers. Per tile: S^T = K Q^T and dP^T = V dO^T (both
+// operands in shared memory), P^T = 2^(S^T c - lse log2 e), dV += P^T dO,
+// dS^T = P^T (dP^T - delta), dK += dS^T Q (P^T and dS^T from registers, as
+// bf16). Thread 0 streams Q, dO, lse and delta of each tile into a ring of
+// kStages stages.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const __grid_constant__ CUtensorMap tm_dk,
+                          const __grid_constant__ CUtensorMap tm_dv,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta, int seq, int ld,
+                          int group, int causal, float scale_log2,
+                          float scale) {
+  using KT = Tile<D, kKV>;
+  using QT = Tile<D, kBM>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t k_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + KT::kBytes;
+  const uint32_t q_s = v_s + KT::kBytes;            // kStages tiles
+  const uint32_t do_s = q_s + kStages * QT::kBytes;  // kStages tiles
+  const uint32_t lse_s = do_s + kStages * QT::kBytes;
+  const uint32_t delta_s = lse_s + kStages * kBM * 4;
+  const uint32_t bars = delta_s + kStages * kBM * 4;
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto floats = [&](uint32_t addr) {
+    return reinterpret_cast<const float*>(smem_raw +
+                                          (addr - smem_u32(smem_raw)));
+  };
+
+  const int k0 = blockIdx.x * kKV;  // heaviest causal blocks first
+  const int hk = blockIdx.y, b = blockIdx.z, hq = gridDim.y * group;
+  const int nq_all = (seq + kBM - 1) / kBM;
+  const int q_first = causal ? k0 / kBM : 0;
+  const int nq = nq_all - q_first;
+  const int n_tiles = group * nq;  // (query head, query tile) pairs
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival a warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto load = [&](int n) {
+    const int s = n % kStages;
+    const int h = hk * group + n / nq, q0 = (q_first + n % nq) * kBM;
+    const int64_t row = (int64_t(b) * hq + h) * ld + q0;
+    mbar_expect_tx(full(s), 2 * QT::kBytes + 2 * kBM * 4);
+    for (int a = 0; a < D / 64; ++a) {
+      tma_load_4d(q_s + s * QT::kBytes + a * QT::kAtomBytes, &tm_q, full(s),
+                  a * 64, h, q0, b);
+      tma_load_4d(do_s + s * QT::kBytes + a * QT::kAtomBytes, &tm_do, full(s),
+                  a * 64, h, q0, b);
+    }
+    bulk_load(lse_s + s * kBM * 4, lse + row, kBM * 4, full(s));
+    bulk_load(delta_s + s * kBM * 4, delta + row, kBM * 4, full(s));
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kv_full, 2 * KT::kBytes);
+    for (int a = 0; a < D / 64; ++a) {
+      tma_load_4d(k_s + a * KT::kAtomBytes, &tm_k, kv_full, a * 64, hk, k0,
+                  b);
+      tma_load_4d(v_s + a * KT::kAtomBytes, &tm_v, kv_full, a * 64, hk, k0,
+                  b);
+    }
+    for (int n = 0; n < min(kStages, n_tiles); ++n) load(n);
+  }
+
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;  // rows r0 and r0 + 8 of 64
+  const int cq = 2 * (lane % 4);            // columns cq, cq + 1 of each 8
+  const int kw0 = k0 + 64 * w;              // this warpgroup's first key
+  const uint32_t k_mine = k_s + 64 * w * 128, v_mine = v_s + 64 * w * 128;
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int n = 0; n < n_tiles; ++n) {
+    // The tile before this one is done everywhere: its stage takes the
+    // next tile but (kStages - 1).
+    if (threadIdx.x == 0 && n > 0 && n - 1 + kStages < n_tiles) {
+      mbar_wait(empty((n - 1) % kStages), ((n - 1) / kStages) & 1);
+      load(n - 1 + kStages);
+    }
+    __syncwarp();
+    const int s = n % kStages;
+    const int q0 = (q_first + n % nq) * kBM;
+    const uint32_t q_t = q_s + s * QT::kBytes, do_t = do_s + s * QT::kBytes;
+    const float* const lse_t = floats(lse_s + s * kBM * 4);
+    const float* const delta_t = floats(delta_s + s * kBM * 4);
+    float st[kBM / 2], dpt[kBM / 2];  // S^T then P^T; dP^T then dS^T
+    uint32_t a[kBM / 16][4];          // P^T, then dS^T, as bf16
+
+    mbar_wait(full(s), (n / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(st, KT::k_major(k_mine, kk), QT::k_major(q_t, kk),
+                         kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(dpt, KT::k_major(v_mine, kk),
+                         QT::k_major(do_t, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(st);
+
+    // P^T; a key past its query, or past T, or a query past T gives 0.
+    const bool edge = q0 + kBM > seq || kw0 + 64 > seq ||
+                      (causal && q0 < kw0 + 63);
+#pragma unroll
+    for (int j = 0; j < kBM / 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(lse_t + 8 * j + cq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float p = wg::fast_exp2(
+            fmaf(st[i], scale_log2, -(e % 2 ? l.y : l.x) * kLog2e));
+        const int col = q0 + 8 * j + cq + e % 2, key = kw0 + r0 + 8 * (e / 2);
+        const bool masked =
+            edge && (col >= seq || key >= seq || (causal && key > col));
+        st[i] = masked ? 0.f : p;
+      }
+    }
+    to_a(st, a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBM / 16; ++kk)
+      wg::wgmma_pv<D>(dv, a[kk], QT::n_major(do_t, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dpt);
+    fence_operands(dv);
+
+#pragma unroll
+    for (int j = 0; j < kBM / 8; ++j) {
+      const float2 dl = *reinterpret_cast<const float2*>(delta_t + 8 * j + cq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        dpt[i] = st[i] * (dpt[i] - (e % 2 ? dl.y : dl.x));
+      }
+    }
+    to_a(dpt, a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBM / 16; ++kk)
+      wg::wgmma_pv<D>(dk, a[kk], QT::n_major(q_t, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dk);
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // dK * D^-0.5 and dV, rounded to bf16, into this warpgroup's own K and V
+  // rows (no longer read), then TMA stores, which drop keys >= T.
+  named_barrier(1 + w, 128);
+  wg::stage_rows<D>(dk, [scale](float x, int) { return x * scale; },
+                    k_mine, KT::kAtomBytes, r0, cq);
+  wg::stage_rows<D>(dv, [](float x, int) { return x; }, v_mine,
+                    KT::kAtomBytes, r0, cq);
+  fence_proxy_async();
+  named_barrier(1 + w, 128);
+  if (t == 0 && kw0 < seq) {
+    for (int a = 0; a < D / 64; ++a) {
+      tma_store_4d(&tm_dk, k_mine + a * KT::kAtomBytes, a * 64, hk, kw0, b);
+      tma_store_4d(&tm_dv, v_mine + a * KT::kAtomBytes, a * 64, hk, kw0, b);
+    }
+    tma_store_commit_and_wait();
+  }
+}
+
+// dQ of 128 query rows of one query head (64 a warpgroup) over the K/V
+// tiles of 64 keys up to the diagonal. Per tile: S = Q K^T and dP = dO V^T
+// (both operands in shared memory), P = 2^(S c - lse log2 e), dS = P (dP -
+// delta), dQ += dS K (dS from registers, as bf16). Thread 0 streams K and V
+// into a ring of kStages stages.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const __grid_constant__ CUtensorMap tm_dq,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, int seq, int ld,
+                        int group, int causal, float scale_log2,
+                        float scale) {
+  using QT = Tile<D, kQ>;
+  using KT = Tile<D, kBN>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_s = q_s + QT::kBytes;
+  const uint32_t k_s = do_s + QT::kBytes;           // kStages tiles
+  const uint32_t v_s = k_s + kStages * KT::kBytes;  // kStages tiles
+  const uint32_t bars = v_s + kStages * KT::kBytes;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kQ;  // heaviest first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
+  const int n_all = (seq + kBN - 1) / kBN;
+  const int n_tiles = causal ? min((q0 + kQ - 1) / kBN + 1, n_all) : n_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival a warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  auto load = [&](int n) {
+    const int s = n % kStages;
+    mbar_expect_tx(full(s), 2 * KT::kBytes);
+    for (int a = 0; a < D / 64; ++a) {
+      tma_load_4d(k_s + s * KT::kBytes + a * KT::kAtomBytes, &tm_k, full(s),
+                  a * 64, hk, n * kBN, b);
+      tma_load_4d(v_s + s * KT::kBytes + a * KT::kAtomBytes, &tm_v, full(s),
+                  a * 64, hk, n * kBN, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 2 * QT::kBytes);
+    for (int a = 0; a < D / 64; ++a) {
+      tma_load_4d(q_s + a * QT::kAtomBytes, &tm_q, q_full, a * 64, h, q0, b);
+      tma_load_4d(do_s + a * QT::kAtomBytes, &tm_do, q_full, a * 64, h, q0,
+                  b);
+    }
+    for (int n = 0; n < min(kStages, n_tiles); ++n) load(n);
+  }
+
+  const int w = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int r0 = 16 * (t / 32) + lane / 4;  // rows r0 and r0 + 8 of 64
+  const int cq = 2 * (lane % 4);            // columns cq, cq + 1 of each 8
+  const int qw0 = q0 + 64 * w;              // this warpgroup's first row
+  const int row0 = qw0 + r0;
+  const uint32_t q_mine = q_s + 64 * w * 128, do_mine = do_s + 64 * w * 128;
+  float l2[2], dl[2];  // lse * log2(e) and delta of rows row0, row0 + 8
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int64_t at = (int64_t(b) * gridDim.y + h) * ld + row0 + 8 * j;
+    l2[j] = lse[at] * kLog2e;
+    dl[j] = delta[at];
+  }
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int n = 0; n < n_tiles; ++n) {
+    if (threadIdx.x == 0 && n > 0 && n - 1 + kStages < n_tiles) {
+      mbar_wait(empty((n - 1) % kStages), ((n - 1) / kStages) & 1);
+      load(n - 1 + kStages);
+    }
+    __syncwarp();
+    const int s = n % kStages, k0 = n * kBN;
+    const uint32_t k_t = k_s + s * KT::kBytes, v_t = v_s + s * KT::kBytes;
+    float sc[kBN / 2], dp[kBN / 2];  // S then P; dP then dS
+    uint32_t a[kBN / 16][4];          // dS as bf16
+
+    mbar_wait(full(s), (n / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(sc, QT::k_major(q_mine, kk), KT::k_major(k_t, kk),
+                         kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(dp, QT::k_major(do_mine, kk), KT::k_major(v_t, kk),
+                         kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operands(sc);
+
+    const bool edge = k0 + kBN > seq || (causal && k0 + kBN - 1 > qw0);
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      const int half = (i / 2) % 2;
+      const float p = wg::fast_exp2(fmaf(sc[i], scale_log2, -l2[half]));
+      const int col = k0 + 8 * (i / 4) + cq + i % 2, row = row0 + 8 * half;
+      const bool masked = edge && (col >= seq || (causal && col > row));
+      sc[i] = masked ? 0.f : p;
+    }
+    fence_operands(sc);  // P is computed here, beside dP, not after it
+    wgmma_wait<0>();
+    fence_operands(dp);
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i)
+      dp[i] = sc[i] * (dp[i] - dl[(i / 2) % 2]);
+    to_a(dp, a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      wg::wgmma_pv<D>(dq, a[kk], KT::n_major(k_t, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operands(dq);
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+
+  // dQ * D^-0.5, rounded to bf16, into this warpgroup's own Q rows (no
+  // longer read), then a TMA store, which drops rows >= T.
+  named_barrier(1 + w, 128);
+  wg::stage_rows<D>(dq, [scale](float x, int) { return x * scale; },
+                    q_mine, QT::kAtomBytes, r0, cq);
+  fence_proxy_async();
+  named_barrier(1 + w, 128);
+  if (t == 0 && qw0 < seq) {
+    for (int a = 0; a < D / 64; ++a)
+      tma_store_4d(&tm_dq, q_mine + a * QT::kAtomBytes, a * 64, h, qw0, b);
+    tma_store_commit_and_wait();
+  }
+}
+
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v,
+                     const void* o, const void* dout, const float* lse,
+                     float* delta, void* dq, void* dk, void* dv, int b,
+                     int seq, int hq, int hkv, int causal,
+                     cudaStream_t stream) {
+  if ((uintptr_t(q) | uintptr_t(k) | uintptr_t(v) | uintptr_t(o) |
+       uintptr_t(dout) | uintptr_t(lse) | uintptr_t(delta) | uintptr_t(dq) |
+       uintptr_t(dk) | uintptr_t(dv)) % 16)
+    return cudaErrorMisalignedAddress;
+  // delta first: the launch binds this thread to the device's context,
+  // which cuTensorMapEncodeTiled needs and the autograd engine's thread,
+  // where the backward runs, may not have yet.
+  const int ld = (seq + 127) / 128 * 128;
+  const int rows = b * hq * ld;
+  flash_bwd_dot_kernel<D><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), delta, seq, ld, hq, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv;  // the dK/dV kernel's
+  CUtensorMap tq_q, tq_k, tq_v, tq_do, tq_dq;         // the dQ kernel's
+  if (!wg::encode<D>(&tm_q, q, b, seq, hq, kBM) ||
+      !wg::encode<D>(&tm_do, dout, b, seq, hq, kBM) ||
+      !wg::encode<D>(&tm_k, k, b, seq, hkv, kKV) ||
+      !wg::encode<D>(&tm_v, v, b, seq, hkv, kKV) ||
+      !wg::encode<D>(&tm_dk, dk, b, seq, hkv, 64) ||
+      !wg::encode<D>(&tm_dv, dv, b, seq, hkv, 64) ||
+      !wg::encode<D>(&tq_q, q, b, seq, hq, kQ) ||
+      !wg::encode<D>(&tq_do, dout, b, seq, hq, kQ) ||
+      !wg::encode<D>(&tq_k, k, b, seq, hkv, kBN) ||
+      !wg::encode<D>(&tq_v, v, b, seq, hkv, kBN) ||
+      !wg::encode<D>(&tq_dq, dq, b, seq, hq, 64))
+    return cudaErrorInvalidValue;
+  const float scale = float(1.0 / sqrt(double(D)));
+  const float scale_log2 = float(1.4426950408889634 / sqrt(double(D)));
+  const int group = hq / hkv;
+
+  constexpr int dkdv_smem =
+      2 * Tile<D, kKV>::kBytes +
+      kStages * (2 * Tile<D, kBM>::kBytes + 8 * kBM) +
+      8 * (1 + 2 * kStages) + 1024;
+  err = cudaFuncSetAttribute(
+      flash_bwd_dkdv_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_kernel<D>
+      <<<dim3((seq + kKV - 1) / kKV, hkv, b), kThreads, dkdv_smem, stream>>>(
+          tm_q, tm_k, tm_v, tm_do, tm_dk, tm_dv, lse, delta, seq, ld, group,
+          causal, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr int dq_smem = 2 * Tile<D, kQ>::kBytes +
+                          2 * kStages * Tile<D, kBN>::kBytes +
+                          8 * (1 + 2 * kStages) + 1024;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             dq_smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<D>
+      <<<dim3((seq + kQ - 1) / kQ, hq, b), kThreads, dq_smem, stream>>>(
+          tq_q, tq_k, tq_v, tq_do, tq_dq, lse, delta, seq, ld, group, causal,
+          scale_log2, scale);
+  return cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* delta, void* dq,
+           void* dk, void* dv, int b, int seq, int hq, int hkv, int d,
+           int causal, void* stream) {
+  if (b <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0)
+    return int(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return int(launch_d<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b,
+                              seq, hq, hkv, causal, s));
+    case 128:
+      return int(launch_d<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b,
+                               seq, hq, hkv, causal, s));
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace bwd
 
 // Each returns the cudaError_t of the launch (0 on success). Pointers are
 // device pointers to contiguous [B,T,H,D] tensors; stream is a cudaStream_t.
@@ -896,5 +1491,27 @@ extern "C" int brt_flash_attention_bf16(const void* q, const void* k,
                                         const void* v, void* o, int b, int seq,
                                         int hq, int hkv, int d, int causal,
                                         void* stream) {
-  return wg::launch(q, k, v, o, b, seq, hq, hkv, d, causal, stream);
+  return wg::launch(q, k, v, o, nullptr, b, seq, hq, hkv, d, causal, stream);
+}
+
+// The bf16 forward for training: also writes lse, [B, Hq, ld] f32 with ld =
+// T rounded up to 128, each row's log-sum-exp of its scaled scores.
+extern "C" int brt_flash_attention_bf16_lse(const void* q, const void* k,
+                                            const void* v, void* o, float* lse,
+                                            int b, int seq, int hq, int hkv,
+                                            int d, int causal, void* stream) {
+  if (lse == nullptr) return int(cudaErrorInvalidValue);
+  return wg::launch(q, k, v, o, lse, b, seq, hq, hkv, d, causal, stream);
+}
+
+// The bf16 backward: dq, dk, dv (contiguous bf16, shaped as q, k, v) from
+// the forward's inputs, its output o, the output's gradient dout and lse;
+// delta is scratch of lse's shape. D is 64 or 128.
+extern "C" int brt_flash_attention_bf16_backward(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, int b, int seq, int hq, int hkv, int d, int causal,
+    void* stream) {
+  return bwd::launch(q, k, v, o, dout, lse, delta, dq, dk, dv, b, seq, hq,
+                     hkv, d, causal, stream);
 }

@@ -92,6 +92,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// Copies `bytes` (a multiple of 16) of contiguous global memory at `src`
+// into shared memory at `dst`, both 16-byte aligned; completes `bytes` of
+// transaction on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 // Copies shared memory at `src` into the tensor map's box at (c0..c3);
 // elements of the box outside the tensor are not written.
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,

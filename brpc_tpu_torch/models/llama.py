@@ -24,8 +24,11 @@ give the same logits:
 
 ``attn_fn`` is pluggable as in the reference; pass
 ``brpc_tpu_torch.ops.flash_attention.flash_attention`` for the CUDA kernel
-when serving. That kernel is forward only, as the reference's is, so
-``make_train_step`` trains with dense attention (``attn_fn=None``).
+when serving. Unlike the reference's, that kernel also has a backward, so
+``make_train_step`` with no ``attn_fn`` trains through it
+(``train_attention``) where the inputs are CUDA bf16 at a head dim and T
+the kernels take, and with dense attention elsewhere (the CPU, f32, the
+sharded step).
 
 ``LlamaModel`` replays its forward from a CUDA graph, one a prompt shape,
 where the tokens are on CUDA, the config is dense (no experts) and no
@@ -50,10 +53,11 @@ with experts is not graphed: a replay would not record them.
 While the program is traced (``obs.rpcz.trace``: a ``torch.profiler``
 session runs), ``forward`` records the span ``llama.forward``, and
 ``make_train_step``'s step records ``train.forward``, ``train.backward``
-and ``train.optimizer``. Each marks its interval on the device. A
-``LlamaModel`` call that replays a graph records ``llama.forward`` around
-the copy of the tokens, the replay and the cast of the logits, and counts
-``graph`` (``GRAPH_COUNTER``) on it.
+and ``train.optimizer``; ``train.forward`` counts ``k1``
+(``K1_TRAIN_COUNTER``) a layer whose attention ran K1. Each marks its
+interval on the device. A ``LlamaModel`` call that replays a graph
+records ``llama.forward`` around the copy of the tokens, the replay and
+the cast of the logits, and counts ``graph`` (``GRAPH_COUNTER``) on it.
 
 The same body runs one rank's share of a model sharded over a (dp, tp,
 sp) mesh (``forward``'s ``ranks``): its collectives are the identity
@@ -63,6 +67,7 @@ where the group has one rank.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Optional
 
@@ -74,6 +79,7 @@ from torch.nn import functional as F
 from brpc_tpu_torch.analysis.race import checked_lock
 from brpc_tpu_torch.models import moe
 from brpc_tpu_torch.obs import rpcz
+from brpc_tpu_torch.ops import flash_attention as fa
 from brpc_tpu_torch.parallel import functional as pf
 from brpc_tpu_torch.parallel.mesh import PartitionSpec as P, Ranks
 from brpc_tpu_torch.utils.tree import tree_map
@@ -83,6 +89,9 @@ AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 #: The counter of a ``llama.forward`` span whose call replayed a graph.
 GRAPH_COUNTER = "graph"
+#: The counter of a ``train.forward`` span: the layers whose attention ran
+#: K1's forward and backward (``train_attention``).
+K1_TRAIN_COUNTER = "k1"
 #: The most graphs a ``LlamaModel`` captures in its life (as many as there
 #: are lengths up to 4096 that K1 takes, multiples of 128) ...
 GRAPHS = 32
@@ -246,6 +255,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v)
     return out.reshape(b, t, hq * d)
+
+
+def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, span=None) -> torch.Tensor:
+    """The unsharded train step's attention where it is given no
+    ``attn_fn``: K1's forward and backward (``flash_attention``) where its
+    kernels train on q (``flash_attention.trains``: CUDA bf16 at a head dim
+    and T they take), so no T x T scores are made, counting
+    ``K1_TRAIN_COUNTER`` on ``span`` (a traced ``train.forward``; None
+    counts nothing); dense ``attention`` elsewhere, the CPU among them."""
+    if fa.trains(q):
+        if span is not None:
+            span.count(K1_TRAIN_COUNTER, 1)
+        return fa.flash_attention(q, k, v, causal=causal)
+    return attention(q, k, v, causal=causal)
 
 
 def _layers(cfg: LlamaConfig, x: torch.Tensor, positions: torch.Tensor,
@@ -439,6 +463,10 @@ def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
     ``batch_specs``, or ``P('dp', 'sp')`` with sequence parallelism). It
     raises ``ValueError`` where 'tp' does not divide the KV heads, the
     vocabulary or the intermediate width.
+
+    Unsharded and with no ``attn_fn``, each layer's attention is
+    ``train_attention``: K1 on CUDA bf16 inputs it trains on, dense
+    attention elsewhere. The sharded step keeps dense attention.
     """
 
     def step(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -451,8 +479,11 @@ def make_train_step(cfg: LlamaConfig, optimizer: torch.optim.Optimizer,
                 loss = tensor_parallel.loss_and_grads(params, tokens, cfg,
                                                       attn_fn)
             else:
-                with rpcz.trace("train", "forward", mark=tokens):
-                    loss = loss_fn(params, tokens, cfg, attn_fn)
+                with rpcz.trace("train", "forward", mark=tokens) as sp:
+                    loss = loss_fn(params, tokens, cfg,
+                                   attn_fn if attn_fn is not None
+                                   else functools.partial(train_attention,
+                                                          span=sp))
                 with rpcz.trace("train", "backward", mark=tokens):
                     loss.backward()
             with rpcz.trace("train", "optimizer", mark=tokens):

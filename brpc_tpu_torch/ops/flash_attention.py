@@ -3,21 +3,32 @@
 ``flash_attention`` keeps the reference's contract: q ``[B,T,Hq,D]``, k/v
 ``[B,T,Hkv,D]`` -> ``[B,T,Hq*D]`` in q's dtype, query head h reads kv head
 ``h // (Hq // Hkv)``, blocks clip to T and a T that does not divide them
-raises ``ValueError``. It is forward only, as the reference is.
+raises ``ValueError``. Unlike the reference, which is forward only, it
+also differentiates: an input that requires grad gives an output whose
+backward computes dq, dk and dv blockwise from the saved log-sum-exp of
+each row, without the T x T scores.
 
-On CUDA tensors it launches one of two Hopper kernels of
-``csrc/flash_attention.cu`` and counts the launch in ``launches`` under its
-dtype (a call made while a CUDA graph is captured launches nothing and
-counts nothing, nor does the graph's replay: a trace shows its kernels):
-for bf16 wgmma products on TMA tiles (128 query rows, 64-row K/V tiles,
-P fed to the P·V product as two bf16 halves); for f32 mma.sync
-products on TMA tiles (128 query rows, 64-row K/V tiles) in split TF32,
-each operand x as tf32(x) + tf32(x - tf32(x)) and each product as three
-TF32 products summed in f32, which holds the f32 bound that one TF32
-product misses. The note there says why. On CPU tensors it runs
-``flash_attention_reference``, the plain PyTorch version of the same
-arithmetic. The kernels pick their own tiles; ``block_q`` and ``block_k``
-keep the contract and set the plain version's K/V tile.
+On CUDA tensors it launches the Hopper kernels of
+``csrc/flash_attention.cu`` and counts each launch in ``launches`` (a
+call made while a CUDA graph is captured launches nothing and counts
+nothing, nor does the graph's replay: a trace shows its kernels). The
+forward is one of two kernels, counted under its dtype: for bf16 wgmma
+products on TMA tiles (128 query rows, 64-row K/V tiles, P fed to the
+P·V product as two bf16 halves); for f32 mma.sync products on TMA tiles
+(128 query rows, 64-row K/V tiles) in split TF32, each operand x as
+tf32(x) + tf32(x - tf32(x)) and each product as three TF32 products
+summed in f32, which holds the f32 bound that one TF32 product misses.
+The note there says why. Where ``trains(q)`` (bf16, head dim 64 or 128)
+and an input requires grad, the bf16 forward also writes each row's
+log-sum-exp, and the backward launches three kernels, counted once under
+``"bf16_backward"``: delta = rowsum(dO * O), then dK and dV a KV head's
+128 keys at a time (its query heads summed in registers), then dQ 128
+query rows at a time; wgmma products with P and dS in bf16 and every sum
+in f32, deterministic (no atomics). On CUDA in f32 or at head dim 32 the
+backward raises. On CPU tensors it runs ``flash_attention_reference``
+and ``flash_attention_backward_reference``, the plain PyTorch versions of
+the same arithmetic. The kernels pick their own tiles; ``block_q`` and
+``block_k`` keep the contract and set the plain versions' K/V tile.
 """
 
 from __future__ import annotations
@@ -30,9 +41,10 @@ from brpc_tpu_torch.ops import _build
 
 # Kernel launches by kernel (its dtype), those of CUDA graph replays
 # aside; a caller sets them to 0 before a run and reads them after.
-launches = {"bf16": 0, "f32": 0}
+launches = {"bf16": 0, "f32": 0, "bf16_backward": 0}
 
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
+BACKWARD_HEAD_DIMS = (64, 128)
 _KERNELS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _SYMBOLS = {"f32": "brt_flash_attention_f32",
             "bf16": "brt_flash_attention_bf16"}
@@ -72,16 +84,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: [B,T,Hq,D], k/v: [B,T,Hkv,D] -> [B,T,Hq*D] (llama.attention
     contract). CUDA tensors run the kernel; CPU tensors the plain version.
 
-    Forward only, as the reference is: when an input requires grad the
-    output carries a ``grad_fn`` whose backward raises, on either device.
+    When an input requires grad the output carries a ``grad_fn``: on the
+    CPU it runs ``flash_attention_backward_reference``; on CUDA, where
+    ``trains(q)``, the forward also keeps each row's log-sum-exp and the
+    backward runs the backward kernels; elsewhere on CUDA (f32, head dim
+    32) the backward raises.
     """
     block_q, block_k = _check(q, k, v, block_q, block_k)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _ForwardOnly.apply(q, k, v, causal, block_q, block_k)
+        return _Attention.apply(q, k, v, causal, block_q, block_k)
     return _forward(q, k, v, causal, block_q, block_k)
+
+
+def trains(q: torch.Tensor) -> bool:
+    """Whether ``flash_attention`` has a kernel backward for ``q``
+    [B,T,Hq,D]: a CUDA bf16 tensor whose head dim the backward takes and
+    whose T the default 128-row blocks divide (or a T under 128)."""
+    if q.dim() != 4 or q.device.type != "cuda" or q.dtype != torch.bfloat16:
+        return False
+    t, d = q.shape[1], q.shape[3]
+    return d in BACKWARD_HEAD_DIMS and t > 0 and t % min(128, t) == 0
 
 
 def _forward(q, k, v, causal: bool, block_q: int,
@@ -92,41 +117,94 @@ def _forward(q, k, v, causal: bool, block_q: int,
     return _launch(q, k, v, causal)
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """Runs ``_forward`` and refuses to differentiate it."""
+class _Attention(torch.autograd.Function):
+    """The forward, keeping what the backward reads: q, k, v, the output
+    and each row's log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_k):
-        return _forward(q, k, v, causal, block_q, block_k)
+        ctx.causal, ctx.block_q, ctx.block_k = causal, block_q, block_k
+        if q.device.type == "cpu":
+            out, lse = _reference(q, k, v, causal, block_k)
+        elif trains(q):
+            out, lse = _launch(q, k, v, causal, keep_lse=True)
+        else:
+            ctx.refused = (f"flash_attention has no {q.dtype} backward at "
+                           f"head dim {q.shape[-1]} on CUDA; it trains bf16 "
+                           f"at head dims {BACKWARD_HEAD_DIMS}")
+            return _launch(q, k, v, causal)
+        ctx.refused = None
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, grad):
-        raise RuntimeError(
-            "flash_attention is forward only, as the reference kernel is; "
-            "training uses dense attention (attn_fn=None)")
+        if ctx.refused:
+            raise RuntimeError(ctx.refused)
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_attention_backward_reference(
+                q, k, v, out, lse, grad, causal=ctx.causal,
+                block_q=ctx.block_q, block_k=ctx.block_k)
+        else:
+            grads = _launch_backward(q, k, v, out, lse, grad, ctx.causal)
+        return (*grads, None, None, None)
 
 
-def _launch(q, k, v, causal: bool) -> torch.Tensor:
+def _launch(q, k, v, causal: bool, keep_lse: bool = False):
+    """The forward kernel's output [B,T,Hq*D]; with ``keep_lse`` also the
+    log-sum-exp, [B,Hq,T rounded up to 128] f32 (``_launch_backward``
+    reads it)."""
     b, t, hq, d = q.shape
     kernel = _KERNELS[q.dtype]
-    fn = getattr(_library(), _SYMBOLS[kernel])
     out = torch.empty_like(q)
+    lse = None
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, t, hq, k.shape[2], d, int(causal),
-                 torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (b, t, hq, k.shape[2], d, int(causal), stream)
+        if keep_lse:
+            lse = torch.empty((b, hq, -(-t // 128) * 128),
+                              dtype=torch.float32, device=q.device)
+            err = _library().brt_flash_attention_bf16_lse(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *args)
+        else:
+            err = getattr(_library(), _SYMBOLS[kernel])(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *args)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     if not torch.cuda.is_current_stream_capturing():
         launches[kernel] += 1
-    return out.reshape(b, t, hq * d)
+    out = out.reshape(b, t, hq * d)
+    return (out, lse) if keep_lse else out
+
+
+def _launch_backward(q, k, v, out, lse, grad, causal: bool) -> tuple:
+    """dq, dk, dv from the backward kernels."""
+    b, t, hq, d = q.shape
+    grad = grad.reshape(b, t, hq, d).contiguous()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        err = _library().brt_flash_attention_bf16_backward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            grad.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, t, hq, k.shape[2], d,
+            int(causal), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA "
+                           f"error {err}")
+    if not torch.cuda.is_current_stream_capturing():
+        launches["bf16_backward"] += 1
+    return dq, dk, dv
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    if lib.brt_flash_attention_bf16.argtypes is not None:
-        return lib  # declared below, last: both symbols are declared
+    if lib.brt_flash_attention_bf16_backward.argtypes is not None:
+        return lib  # declared below, last: every symbol is declared
     # q, k, v, out; (b, t, hq, hkv, d, causal); the stream
     lib.brt_flash_attention_f32.argtypes = [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -134,6 +212,15 @@ def _library() -> ctypes.CDLL:
     lib.brt_flash_attention_bf16.argtypes = [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.brt_flash_attention_bf16.restype = ctypes.c_int
+    # q, k, v, out, lse; (b, t, hq, hkv, d, causal); the stream
+    lib.brt_flash_attention_bf16_lse.argtypes = [ctypes.c_void_p] * 5 \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.brt_flash_attention_bf16_lse.restype = ctypes.c_int
+    # q, k, v, out, dout, lse, delta, dq, dk, dv; (b, t, hq, hkv, d,
+    # causal); the stream
+    lib.brt_flash_attention_bf16_backward.restype = ctypes.c_int
+    lib.brt_flash_attention_bf16_backward.argtypes = [ctypes.c_void_p] * 10 \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return lib
 
 
@@ -149,6 +236,12 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
     p = 0 with alpha = 1 there, exactly as skipping it would.
     """
     block_q, block_k = _check(q, k, v, block_q, block_k)
+    return _reference(q, k, v, causal, block_k)[0]
+
+
+def _reference(q, k, v, causal: bool, block_k: int) -> tuple:
+    """``flash_attention_reference``'s output and each row's log-sum-exp
+    of its scaled scores, [B,Hq,T] f32."""
     b, t, hq, d = q.shape
     hkv = k.shape[2]
     qf = (q.float() * d ** -0.5).view(b, t, hkv, hq // hkv, d)
@@ -170,5 +263,56 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + p @ vf[..., k0:k0 + block_k, :]
         m = m_new
-    out = (acc / l.clamp_min(1e-20)).to(q.dtype)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq * d)
+    l = l.clamp_min(1e-20)
+    out = (acc / l).to(q.dtype)
+    lse = (m + torch.log(l)).reshape(b, hq, t)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq * d), lse
+
+
+def flash_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+        lse: torch.Tensor, grad: torch.Tensor, *, causal: bool = True,
+        block_q: int = 128, block_k: int = 128) -> tuple:
+    """The backward kernels' arithmetic in plain PyTorch: dq, dk, dv in the
+    dtypes of q, k, v from the forward's output ``out`` [B,T,Hq*D], its
+    log-sum-exp ``lse`` [B,Hq,>=T] and the output's gradient ``grad``.
+
+    delta = rowsum(dO * O) in f32; over K/V tiles of ``block_k``: P =
+    exp(S - lse) with S = q k^T D**-0.5 in f32 (masked pairs 0), dV = P^T
+    dO summed over each KV head's query heads, dP = dO V^T, dS = P (dP -
+    delta), dK = dS^T q D**-0.5, and dQ accumulates dS K, times D**-0.5 at
+    the end. P and dS are rounded to q's dtype before their products, as
+    the kernels feed them to the tensor cores; every sum is f32.
+    """
+    block_q, block_k = _check(q, k, v, block_q, block_k)
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    scale = d ** -0.5
+
+    def heads(x):                                       # [B,Hkv,G,T,D]
+        x = x.float().reshape(b, t, hkv, hq // hkv, d)
+        return x.permute(0, 2, 3, 1, 4)
+
+    qf, do, o = heads(q), heads(grad), heads(out)
+    kf = k.float().permute(0, 2, 1, 3).unsqueeze(2)     # [B,Hkv,1,T,D]
+    vf = v.float().permute(0, 2, 1, 3).unsqueeze(2)
+    lse = lse[..., :t].reshape(b, hkv, hq // hkv, t, 1)
+    delta = (do * o).sum(-1, keepdim=True)
+    rows = torch.arange(t, device=q.device)[:, None]
+    dq = torch.zeros_like(qf)
+    dk, dv = [], []
+    for k0 in range(0, t, block_k):
+        kt, vt = kf[..., k0:k0 + block_k, :], vf[..., k0:k0 + block_k, :]
+        p = torch.exp((qf * scale) @ kt.transpose(-1, -2) - lse)
+        if causal:
+            cols = torch.arange(k0, k0 + block_k, device=q.device)[None, :]
+            p = torch.where(cols <= rows, p, 0.0)
+        ds = p * (do @ vt.transpose(-1, -2) - delta)
+        p, ds = (x.to(q.dtype).float() for x in (p, ds))
+        dv.append((p.transpose(-1, -2) @ do).sum(2))
+        dk.append((ds.transpose(-1, -2) @ qf).sum(2) * scale)
+        dq = dq + ds @ kt
+    dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(b, t, hq, d)
+    dk = torch.cat(dk, 2).permute(0, 2, 1, 3)           # [B,T,Hkv,D]
+    dv = torch.cat(dv, 2).permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

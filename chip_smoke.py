@@ -15,7 +15,12 @@ is fatal when it fails:
    time and one PyTorch library call for the same function (for f32 both
    bounds: the operations at the SIMT rate, and three times them at the
    TF32 rate, the split-TF32 products the kernel takes; the row's bound is
-   the smaller);
+   the smaller); then K1's backward at the train cell's attention
+   (DeepSeek-LLM-7B's heads, Hq = Hkv = 32, D 128, (2, 2048), causal): dq,
+   dk and dv through autograd against the plain backward, the log-sum-exp
+   the forward keeps against the plain forward's, one forward and one
+   backward counted, the backward timed in turns with SDPA's backward, its
+   bound and the plain version's time;
 3. the parameter server's two kernels at Llama-3-8B's embedding table
    (128256 x 4096 f32, drawn from a seed as the shard draws it) and
    ``PS_K`` Zipf-skewed ids: the row gather bit-equal to ``index_select``,
@@ -50,12 +55,15 @@ is fatal when it fails:
    on the card, restored into a fresh template and stepped: it must give
    the uninterrupted step 3 bit for bit;
 7. training at Llama-3-8B width cut to ``TRAIN_LAYERS`` layers (AdamW's
-   state for all 32 does not fit the card), dense attention as the
-   reference trains: a warm-up step and ``TRAIN_STEPS`` timed steps on one
-   batch, with each loss, the step time, tokens/s, peak memory, the
-   model's FLOPs and AdamW's bytes against the card's peaks, then one more
-   step under ``torch.profiler``. The loss must be finite and fall, no
-   flash kernel may launch, and the peak must stay under the card's 80 GB;
+   state for all 32 does not fit the card), attention through K1's
+   forward and backward (``llama.train_attention``): a warm-up step and
+   ``TRAIN_STEPS`` timed steps on one batch, with each loss, the step
+   time, tokens/s, peak memory, the model's FLOPs and AdamW's bytes
+   against the card's peaks, then one more step under ``torch.profiler``.
+   The loss must be finite and fall, K1 must launch one forward and one
+   backward a layer a step (the profiled step: one forward and three
+   backward kernels a layer), and the peak must stay under the card's
+   80 GB;
 8. the parameter server serving that table from device memory:
    ``DevicePsShardServer`` on the card, ``RemoteEmbedding`` over loopback
    RPC, a warm-up, then ``PS_PAIRS`` Lookup/ApplyGrad pairs of ``PS_K``
@@ -206,10 +214,11 @@ The kernels line gives each kernel's launches by path
 (``launches_by_path``), phases 10 ("model_parallel"), 11
 ("device_fabric"), 12 ("press"), 13 ("ps_recover"), 14
 ("native_device") and 15 ("multi_card", summed over its ranks and
-processes) included; K1 has
-one entry a kernel, bf16 ("flash_attention", main path "serve") and f32
-("flash_attention_f32", main path "serve_f32"), each with the tiny
-phase's launches ("tiny"). A serving path's launches are those its
+processes) included; K1 has one entry a kernel, bf16 ("flash_attention",
+main path "serve"), f32 ("flash_attention_f32", main path "serve_f32")
+and the bf16 backward ("flash_attention_backward", main path "train", its
+row from phase 2's backward check), each with the tiny phase's launches
+("tiny") and phase 7's ("train"). A serving path's launches are those its
 wrapper counted in the warm-up's eager requests and those the profiler
 recorded in the profiled requests, which replay graphs; the timed
 requests' replays are counted by neither.
@@ -259,6 +268,18 @@ REPEATS = 10  # timed requests of each shape
 # these shapes) does not.
 F32_ATOL = 2e-5
 BF16_REL, BF16_FLOOR = 2.0 ** -7, 2.0 ** -4
+# K1's backward at deepseek7b.train's attention (DeepSeek-LLM-7B's MHA heads,
+# 32/32 of 128, batch (2, 2048)), causal. Its dq, dk and dv through autograd
+# against flash_attention_backward_reference on the same output, log-sum-exp
+# and gradient, both bf16 on the card: each within BWD_MAX_REL of its
+# largest element and BWD_NORM_REL in norm (the card tests' bounds). Both
+# round P and dS to bf16 for their products, but P comes from the kernel's
+# exp2 and the plain version's exp, which differ by ulps and so flip a bf16
+# rounding now and then (2**-9 of its term each); a wrong tile, mask or
+# scale is off by the gradient's own size. The log-sum-exp the forward keeps
+# against the plain forward's within LSE_ATOL (f32 sums in another order).
+BWD_B, BWD_T, BWD_HQ, BWD_HKV = 2, 2048, 32, 32
+BWD_MAX_REL, BWD_NORM_REL, LSE_ATOL = 1e-2, 2e-3, 1e-5
 # Flash against dense attention over 32 bf16 layers: the two paths round
 # the attention output differently (about one bf16 ulp), and each layer
 # adds its own such step to the residual stream. On the H100 the port gave
@@ -316,7 +337,10 @@ PS_STEP_RTOL = 1e-6
 # f32 rounding, ~1e-6 over 8 layers; a wrong factor, shard, position or
 # target gives an error of order 1. At bf16 its first loss against phase
 # 7's first loss (same params, same batch) within MP_LOSS_TOL relative,
-# the dry run's loss gate. The MoE layer at Llama-3-8B's widths (also
+# the dry run's loss gate. The sharded step's attention is dense and phase
+# 7's runs through K1; the two round the attention differently, which moves
+# a bf16 loss by about 1e-4 of itself, where a wrong shard, factor or
+# target moves it by its own size. The MoE layer at Llama-3-8B's widths (also
 # Mixtral-8x7B's published hidden 4096, intermediate 14336, 8 experts)
 # with the reference's top-1 routing and capacity factor 2.0 on one
 # sequence of 2048 tokens, and ring and Ulysses attention at Llama-3-8B's
@@ -417,7 +441,8 @@ def flash_counts() -> dict:
     from brpc_tpu_torch.ops import flash_attention as fa
 
     return {"flash_attention": fa.launches["bf16"],
-            "flash_attention_f32": fa.launches["f32"]}
+            "flash_attention_f32": fa.launches["f32"],
+            "flash_attention_backward": fa.launches["bf16_backward"]}
 
 
 def kernel_error(got, want):
@@ -637,6 +662,97 @@ def phase_kernels():
     return rows
 
 
+def backward_bound(b, t, hq, hkv, causal):
+    """(ms, what bounds it) of K1's backward: its model operations, 8·B·Hq·D
+    a kept (query, key) pair (the products dV, dP, dK and dQ; the recompute
+    of S is not counted), against the bf16 peak, or q, o, dO, dq and k, v,
+    dk, dv moved once in bf16 with each row's log-sum-exp and delta in f32
+    against the memory rate, whichever takes longer."""
+    pairs = t * (t + 1) // 2 if causal else t * t
+    ops = 8 * b * hq * D * pairs
+    nbytes = 2 * 4 * b * t * (hq + hkv) * D + 2 * 4 * b * hq * t
+    t_ops = ops / PEAK_FLOPS[torch.bfloat16]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_kernels_backward():
+    """K1's backward at the train cell's attention: dq, dk and dv through
+    autograd against the plain backward, the kept log-sum-exp against the
+    plain forward's, one forward and one backward counted; then the
+    backward timed in turns with SDPA's backward, and the plain version's
+    time. Returns the kernels line's row."""
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    b, t, hq, hkv, causal = BWD_B, BWD_T, BWD_HQ, BWD_HKV, True
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((b, t, h, D), generator=gen, device="cuda")
+               .bfloat16().requires_grad_(True) for h in (hq, hkv, hkv))
+    grad = torch.randn((b, t, hq * D), generator=gen,
+                       device="cuda").bfloat16()
+    before = dict(fa.launches)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), grad, retain_graph=True)
+    torch.cuda.synchronize()
+    name = f"bf16 causal={causal} B={b} T={t} Hq={hq} Hkv={hkv}"
+    check(fa.launches == {**before, "bf16": before["bf16"] + 1,
+                          "bf16_backward": before["bf16_backward"] + 1},
+          f"flash_attention backward {name}: launches {fa.launches} after "
+          f"{before}, want one forward and one backward")
+    qd, kd, vd, od = (x.detach() for x in (q, k, v, out))
+    _, lse = fa._launch(qd, kd, vd, causal, keep_lse=True)
+    _, lse_want = fa._reference(qd, kd, vd, causal, 128)
+    lse_err = (lse[..., :t] - lse_want).abs().max().item()
+    check(lse_err <= LSE_ATOL, f"flash_attention {name}: log-sum-exp off "
+          f"the plain version's by {lse_err} (bound {LSE_ATOL})")
+    want = fa.flash_attention_backward_reference(qd, kd, vd, od, lse, grad,
+                                                 causal=causal)
+    errs, max_abs = {}, 0.0
+    for grad_name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.dtype == torch.bfloat16 and g.shape == w.shape,
+              f"flash_attention backward {name}: {grad_name} is {g.dtype} "
+              f"{tuple(g.shape)}, want bf16 {tuple(w.shape)}")
+        g, w = g.float(), w.float()
+        diff = g - w
+        max_abs = max(max_abs, diff.abs().max().item())
+        errs[grad_name] = ((diff.abs().max() / w.abs().max()).item(),
+                           (diff.norm() / w.norm()).item())
+        check(errs[grad_name][0] <= BWD_MAX_REL
+              and errs[grad_name][1] <= BWD_NORM_REL,
+              f"flash_attention backward {name}: {grad_name} off the plain "
+              f"version by {errs[grad_name][0]} of its largest element "
+              f"(bound {BWD_MAX_REL}) and {errs[grad_name][1]} in norm "
+              f"(bound {BWD_NORM_REL})")
+
+    # SDPA on the same storage, [B,H,T,D] views of [B,T,H,D] tensors.
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    library_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=hq != hkv)
+    library_grad = grad.view(b, t, hq, D).transpose(1, 2)
+    turns = in_turns(f"flash_attention backward {name}", {
+        "library": lambda: torch.autograd.grad(
+            library_out, (qt, kt, vt), library_grad, retain_graph=True),
+        "kernel": lambda: torch.autograd.grad(out, (q, k, v), grad,
+                                              retain_graph=True)}, 20)
+    ms, library_ms = turns["kernel"][0], turns["library"][0]
+    plain_ms, _ = time_ms(lambda: fa.flash_attention_backward_reference(
+        qd, kd, vd, od, lse, grad, causal=causal), 3, warmup=1)
+    bound_ms, bound_by = backward_bound(b, t, hq, hkv, causal)
+    print(f"flash_attention backward {name}: max_abs_err={max_abs:.3e} "
+          + " ".join(f"{n}_max_rel={m:.3e} {n}_norm_rel={r:.3e}"
+                     for n, (m, r) in errs.items())
+          + f" lse_max_abs_err={lse_err:.3e} ms={ms:.4f} "
+          f"tflops={8 * b * hq * D * (t * (t + 1) // 2) / ms / 1e9:.1f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) "
+          f"of_bound={bound_ms / ms:.4f}")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                shape=[b, t, hq, hkv, D])
+
+
 def phase_tiny():
     """The tiny config on the card against the same forward on the CPU;
     returns K1's launches by kernel."""
@@ -661,7 +777,8 @@ def phase_tiny():
         check(err <= tol, f"tiny forward {dtype}: {err} > {tol}")
     launches = flash_counts()
     check(launches == {"flash_attention": cfg.n_layers,
-                       "flash_attention_f32": cfg.n_layers},
+                       "flash_attention_f32": cfg.n_layers,
+                       "flash_attention_backward": 0},
           f"tiny forward launches {launches}")
     # Ids past both ends of the vocabulary are clamped as jnp clamps them,
     # on the card too (no device-side assert); such a target makes the
@@ -713,7 +830,8 @@ def phase_serve():
         torch.cuda.synchronize()
         launches = flash_counts()
         check(launches == {"flash_attention": len(requests) * cfg.n_layers,
-                           "flash_attention_f32": 0},
+                           "flash_attention_f32": 0,
+                           "flash_attention_backward": 0},
               f"warm-up: {launches} launches over {len(requests)} requests")
 
         for i, tokens in enumerate(requests):
@@ -738,7 +856,8 @@ def phase_serve():
         torch.cuda.synchronize()
         f32_launches = flash_counts()
         check(f32_launches == {"flash_attention": 0,
-                               "flash_attention_f32": cfg.n_layers},
+                               "flash_attention_f32": cfg.n_layers,
+                               "flash_attention_backward": 0},
               f"f32 warm-up launches {f32_launches}")
         logits = serve_requests(model32, cfg32, tokens, F32_REPEATS)
         compare_dense(llama, params, cfg32, tokens, logits,
@@ -805,6 +924,7 @@ def compare_dense(llama, params, cfg, tokens, flash_logits, max_bound,
 
 # Kernel names by kind; the first pattern that matches names the kind.
 KERNEL_KINDS = (("flash_attention", re.compile(r"flash_fwd")),
+                ("flash_attention_backward", re.compile(r"flash_bwd")),
                 ("collective", re.compile(r"nccl", re.IGNORECASE)),
                 ("matmul", re.compile(r"gemm|xmma|nvjet|cutlass|sm90_")),
                 ("optimizer", re.compile(r"[Aa]dam")),
@@ -967,7 +1087,7 @@ def phase_train():
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"train: Llama-3-8B width, {cfg.n_layers} of 32 layers, "
           f"{n_params} params ({n_params * 16 / 1e9:.3f} GB of f32 params, "
-          f"grads and AdamW moments), batch B={b} T={t}, dense attention, "
+          f"grads and AdamW moments), batch B={b} T={t}, K1 attention, "
           f"AdamW lr {TRAIN_LR} fused={opt.param_groups[0]['fused']}, init "
           f"{time.perf_counter() - t0:.3f} s")
 
@@ -981,7 +1101,7 @@ def phase_train():
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         losses.append(loss.item())
-    launches = sum(fa.launches.values())
+    launches = dict(fa.launches)
     peak = torch.cuda.max_memory_allocated()
     timed = seconds[1:]
     median = statistics.median(timed)
@@ -1001,11 +1121,19 @@ def phase_train():
           f"B a param): {adamw_ms:.3f} ms at 3.35 TB/s")
     check(all(math.isfinite(x) for x in losses), f"train losses {losses}")
     check(losses[-1] < losses[0], f"train loss did not fall: {losses}")
-    check(launches == 0, f"{launches} flash launches while training")
+    layer_steps = cfg.n_layers * (1 + TRAIN_STEPS)
+    check(launches == {"bf16": layer_steps, "f32": 0,
+                       "bf16_backward": layer_steps},
+          f"flash launches {launches} while training; want one forward and "
+          f"one backward a layer a step")
     check(peak < TRAIN_PEAK_LIMIT, f"train peak {peak} bytes")
-    profile_run(f"train step B={b} T={t} layers={cfg.n_layers}",
-                lambda: step(params, tokens))
-    return losses[0]
+    kinds = profile_run(f"train step B={b} T={t} layers={cfg.n_layers}",
+                        lambda: step(params, tokens))
+    k1 = (kinds["flash_attention"], kinds["flash_attention_backward"])
+    check(k1 == (cfg.n_layers, 3 * cfg.n_layers),
+          f"profiled train step: {k1} K1 forward and backward kernels, want "
+          f"one forward and three backward kernels a layer")
+    return losses[0], flash_counts()
 
 
 def seeded_table():
@@ -1417,10 +1545,11 @@ def channel_ops(mesh):
                                               size_mb=ALLREDUCE_MB)
 
 
-def phase_model_parallel(dense_loss):
+def phase_model_parallel(k1_loss):
     """Phase 10: phase 15's (a)-(e) (``mc_model``) on an NCCL world of one,
-    the sharded step's first bf16 loss against phase 7's (``dense_loss``,
-    on the same params and batch), and the dry run's MoE shape on the card
+    the sharded step's first bf16 loss (dense attention) against phase 7's
+    (``k1_loss``: the unsharded step, attention through K1, on the same
+    params and batch), and the dry run's MoE shape on the card
     against the CPU; returns the kernels' launches over the phase (all 0:
     no kernel of the repo is on these paths)."""
     from brpc_tpu_torch.ops import embedding_rows as er
@@ -1433,11 +1562,11 @@ def phase_model_parallel(dense_loss):
     report_model("model parallel", plan, [out])
     ((name, _, _),) = plan.layouts[1]
     first = out[name]["losses"][0]
-    loss_err = abs(first - dense_loss) / abs(dense_loss)
-    print(f"model parallel: bf16 first loss {first} against the dense "
-          f"step's {dense_loss} (rel {loss_err:.3e}, bound {MP_LOSS_TOL})")
+    loss_err = abs(first - k1_loss) / abs(k1_loss)
+    print(f"model parallel: bf16 first loss {first} against phase 7's K1 "
+          f"step's {k1_loss} (rel {loss_err:.3e}, bound {MP_LOSS_TOL})")
     check(loss_err <= MP_LOSS_TOL,
-          f"sharded loss {first} against {dense_loss}")
+          f"sharded loss {first} against phase 7's K1 loss {k1_loss}")
     launches = {**flash_counts(), **er.launches}
     check(not any(launches.values()),
           f"kernel launches on the model-parallel paths: {launches}")
@@ -3210,6 +3339,7 @@ def main() -> int:
     card = phase_build()
     native_build = start_native_device_build()
     rows = phase_kernels()
+    backward_row = phase_kernels_backward()
     t0 = time.perf_counter()
     table = seeded_table()
     print(f"ps: seeded table drawn on the host in "
@@ -3218,10 +3348,10 @@ def main() -> int:
     tiny = phase_tiny()
     served = phase_serve()
     phase_tiny_train()
-    dense_loss = phase_train()
+    k1_loss, trained = phase_train()
     ps_launches = phase_ps_serve(table)
     collective = phase_ps_collective(table)
-    model_parallel = phase_model_parallel(dense_loss)
+    model_parallel = phase_model_parallel(k1_loss)
     fabric, fabric_rows = phase_device_fabric()
     pressed = phase_press(table)
     recovered = phase_ps_recover(table)
@@ -3229,7 +3359,8 @@ def main() -> int:
     multi_card = phase_multi_card(table, native_build)
 
     b, t = REQUESTS[0]
-    k1_paths = {"tiny": tiny, **served, "model_parallel": model_parallel,
+    k1_paths = {"tiny": tiny, **served, "train": trained,
+                "model_parallel": model_parallel,
                 "device_fabric": fabric, "press": pressed,
                 "ps_recover": recovered, "multi_card": multi_card}
     k1_main = {"flash_attention": ("serve", torch.bfloat16,
@@ -3247,6 +3378,19 @@ def main() -> int:
                              for p, counts in k1_paths.items()},
         **rows[(b, t, dtype, True)]}
         for name, (path, dtype, design) in k1_main.items()), {
+        "name": "flash_attention_backward", "route": "cuda",
+        "source": "brpc_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "brpc_tpu/models/llama.py:150 (dense attention, which "
+                    "the reference's train step differentiates; its kernel "
+                    "is forward only)",
+        "design": "wgmma+tma: delta, then dK/dV a KV head's 128 keys a "
+                  "block (its query heads summed in registers), then dQ "
+                  "128 query rows a block; P and dS in bf16, f32 sums, no "
+                  "atomics",
+        "launches": trained["flash_attention_backward"],
+        "launches_by_path": {p: counts["flash_attention_backward"]
+                             for p, counts in k1_paths.items()},
+        **backward_row}, {
         "name": "gather_rows", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:100",
         "design": "StableHLO device program, not Pallas; a block per id",

@@ -102,13 +102,68 @@ def _requiring_grad(seed):
             for a in _inputs(seed, t=64)]
 
 
-def test_backward_raises_on_cpu():
-    q, k, v = _requiring_grad(9)
-    out = fa.flash_attention(q, k, v, block_q=32, block_k=32)
-    assert out.grad_fn is not None
-    with pytest.raises(RuntimeError, match="forward only"):
-        out.sum().backward()
-    assert q.grad is None and k.grad is None and v.grad is None
+# (B, T, Hq, Hkv, D): MHA and GQA at head dims 64 and 128, T 64 to 256.
+_GRAD_SHAPES = [(2, 64, 4, 4, 64), (1, 128, 4, 2, 64), (1, 256, 8, 2, 128),
+                (2, 128, 4, 1, 128)]
+
+
+def _grad_inputs(shape, seed):
+    b, t, hq, hkv, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d),
+                                                    dtype=np.float32))
+               for h in (hq, hkv, hkv))
+    grad = torch.from_numpy(rng.standard_normal((b, t, hq * d),
+                                                dtype=np.float32))
+    return q, k, v, grad
+
+
+@pytest.mark.parametrize("via", ["autograd", "reference"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", _GRAD_SHAPES)
+def test_cpu_backward_matches_dense_autograd(shape, causal, via):
+    """dq, dk and dv of ``flash_attention``'s CPU backward (``autograd``)
+    and of ``flash_attention_backward_reference`` called on the forward's
+    output and log-sum-exp (``reference``) against autograd through dense
+    ``llama.attention``, all in f32: the same function summed in another
+    order, within 2e-5 of the largest gradient element (measured ~1e-6)."""
+    q, k, v, grad = _grad_inputs(shape, seed=sum(shape) + causal)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    dense = llama.attention(*leaves, causal=causal)
+    want = torch.autograd.grad(dense, leaves, grad)
+    if via == "autograd":
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=causal, block_q=64,
+                                 block_k=64)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out, leaves, grad)
+    else:
+        out, lse = fa._reference(q, k, v, causal, 64)
+        assert lse.shape == (shape[0], shape[2], shape[1])
+        got = fa.flash_attention_backward_reference(
+            q, k, v, out, lse, grad, causal=causal, block_q=64, block_k=64)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        err = (g - w).abs().max().item()
+        assert err <= 2e-5 * w.abs().max().item(), (name, err)
+
+
+def test_cpu_backward_in_bf16_rounds_p_and_ds_once():
+    """With bf16 inputs the CPU backward rounds P and dS to bf16 before
+    their products, as the kernels do, and sums in f32: within 2**-6 of the
+    largest gradient element of dense attention's f32 gradients (the
+    inputs themselves are bf16, so both sides see the same values)."""
+    q, k, v, grad = (x.bfloat16() for x in _grad_inputs((1, 128, 4, 2, 64),
+                                                        seed=3))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*leaves, block_q=64,
+                                                 block_k=64), leaves, grad)
+    f32 = [x.float().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(llama.attention(*f32), f32, grad.float())
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        err = (g.float() - w).abs().max().item()
+        assert err <= 2.0 ** -6 * w.abs().max().item()
 
 
 def test_forward_with_grad_inputs_matches_plain_version():
@@ -124,19 +179,89 @@ def test_forward_with_grad_inputs_matches_plain_version():
                                   block_k=32).grad_fn is None
 
 
-def test_train_step_with_flash_attention_raises_at_first_step():
+def test_train_step_with_flash_attention_matches_dense_step():
+    """``make_train_step(cfg, opt, attn_fn=flash_attention)`` steps on the
+    tiny config (bf16 compute) and matches the dense step: losses within
+    2e-3 (7e-4 measured), first gradients within 3 % of each leaf's norm
+    (1.2 % measured: both round the probabilities to bf16, dense also its
+    scores, at different places), and each leaf's change over three AdamW
+    steps within 15 % of the dense change's norm (7 % measured: AdamW's
+    first steps divide by |g|, so a weight whose gradient is within
+    rounding of zero moves by about lr either way)."""
     cfg = llama.LlamaConfig.tiny()
-    params = llama.trainable(llama.init_params(
-        cfg, generator=torch.Generator().manual_seed(0), device="cpu"))
-    before = [p.detach().clone() for p in tree_leaves(params)]
-    step = llama.make_train_step(cfg, optim.adamw(params, 1e-3),
-                                 attn_fn=fa.flash_attention)
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 32)))
-    with pytest.raises(RuntimeError, match="forward only"):
-        step(params, tokens)
-    for p, b in zip(tree_leaves(params), before):
-        assert torch.equal(p, b) and p.grad is None
+
+    def fresh():
+        return llama.trainable(llama.init_params(
+            cfg, generator=torch.Generator().manual_seed(0), device="cpu"))
+
+    grads = []
+    for attn_fn in (fa.flash_attention, None):
+        params = fresh()
+        llama.loss_fn(params, tokens, cfg, attn_fn).backward()
+        grads.append([p.grad for p in tree_leaves(params)])
+    for g, w in zip(*grads):
+        assert (g - w).norm() <= 0.03 * w.norm()
+    runs = []
+    for attn_fn in (fa.flash_attention, None):
+        params = fresh()
+        step = llama.make_train_step(cfg, optim.adamw(params, 1e-3),
+                                     attn_fn=attn_fn)
+        losses = [step(params, tokens).item() for _ in range(3)]
+        runs.append((losses, [p.detach() for p in tree_leaves(params)]))
+    (flash_losses, flash_params), (dense_losses, dense_params) = runs
+    assert flash_losses[-1] < flash_losses[0]
+    assert np.allclose(flash_losses, dense_losses, rtol=0, atol=2e-3)
+    for p, w, start in zip(flash_params, dense_params,
+                           tree_leaves(fresh())):
+        assert p.grad is None
+        assert (p - w).norm() <= 0.15 * (w - start.detach()).norm()
+
+
+class _Seen:
+    """What ``fa.trains`` reads of a tensor, for devices this host lacks."""
+
+    def __init__(self, device, dtype, shape):
+        self.device, self.dtype, self.shape = torch.device(device), dtype, shape
+
+    def dim(self):
+        return len(self.shape)
+
+
+_ROUTES = [
+    ("cpu bf16", _Seen("cpu", torch.bfloat16, (2, 2048, 32, 128)), False),
+    ("cuda f32", _Seen("cuda", torch.float32, (2, 2048, 32, 128)), False),
+    ("cuda f16", _Seen("cuda", torch.float16, (2, 2048, 32, 128)), False),
+    ("cuda bf16 head dim 32", _Seen("cuda", torch.bfloat16, (2, 128, 4, 32)),
+     False),
+    ("cuda bf16 T 200", _Seen("cuda", torch.bfloat16, (1, 200, 4, 128)),
+     False),
+    ("cuda bf16 three dims", _Seen("cuda", torch.bfloat16, (2048, 32, 128)),
+     False),
+    ("cuda bf16 the train cell", _Seen("cuda", torch.bfloat16,
+                                       (2, 2048, 32, 128)), True),
+    ("cuda bf16 D 64 T 96", _Seen("cuda", torch.bfloat16, (2, 96, 8, 64)),
+     True),
+]
+
+
+@pytest.mark.parametrize("case,q,k1", _ROUTES)
+def test_train_attention_routes_by_what_it_observes(monkeypatch, case, q,
+                                                    k1):
+    """The train step's rule: K1 (``flash_attention``) for a CUDA bf16 q at
+    a head dim and T the kernels take, dense ``attention`` otherwise."""
+    assert fa.trains(q) is k1
+    monkeypatch.setattr(fa, "flash_attention", lambda *a, **kw: "k1")
+    monkeypatch.setattr(llama, "attention", lambda *a, **kw: "dense")
+    assert llama.train_attention(q, q, q) == ("k1" if k1 else "dense")
+
+
+def test_train_attention_on_the_cpu_is_dense_attention():
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _inputs(12, t=64))
+    for causal in (True, False):
+        assert torch.equal(llama.train_attention(q, k, v, causal=causal),
+                           llama.attention(q, k, v, causal=causal))
 
 
 def _bad(change):
@@ -406,24 +531,106 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_is_forward_only_on_card(cuda_device, dtype):
-    """With inputs that require grad the kernel still launches once and
-    gives the same output, and its backward raises, as on the CPU."""
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.bfloat16, 32)])
+def test_kernel_is_forward_only_on_card(cuda_device, dtype, d):
+    """Where the kernels have no backward (f32, or bf16 at head dim 32),
+    inputs that require grad still launch the forward once and give the
+    same output, and the backward raises."""
     g = torch.Generator(device=cuda_device).manual_seed(8)
-    q, k, v = (torch.randn((1, 256, h, 128), generator=g, device=cuda_device)
+    q, k, v = (torch.randn((1, 256, h, d), generator=g, device=cuda_device)
                .to(dtype).requires_grad_(True) for h in (32, 8, 8))
     kernel = fa._KERNELS[dtype]
     before = dict(fa.launches)
     out = fa.flash_attention(q, k, v)
     assert fa.launches == {**before, kernel: before[kernel] + 1}
-    assert out.grad_fn is not None
+    assert out.grad_fn is not None and not fa.trains(q)
     with torch.no_grad():
         want = fa.flash_attention(q, k, v)
     assert torch.equal(out.detach(), want)
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(RuntimeError, match="no .* backward"):
         out.float().sum().backward()
     assert q.grad is None
+
+
+def _card_grad_inputs(device, shape, seed):
+    b, t, hq, hkv, d = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((b, t, h, d), generator=g, device=device)
+               .bfloat16().requires_grad_(True) for h in (hq, hkv, hkv))
+    grad = torch.randn((b, t, hq * d), generator=g, device=device).bfloat16()
+    return q, k, v, grad
+
+
+# The train cell's attention (MHA) and a GQA shape.
+_CARD_GRAD_SHAPES = [(2, 2048, 32, 32, 128), (1, 1024, 32, 8, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", _CARD_GRAD_SHAPES)
+def test_backward_kernels_match_plain_on_card(cuda_device, shape, causal):
+    """dq, dk and dv of the backward kernels against
+    ``flash_attention_backward_reference`` on the same output and
+    log-sum-exp, both in bf16 on the card: within 1e-2 of the largest
+    element of each and 2e-3 in norm (3.3e-3 and 2.4e-4 measured). Both
+    round P and dS to bf16 for the products, but P comes from the kernel's
+    exp2 and the plain version's exp, which differ by ulps and so flip a
+    bf16 rounding now and then (each 2**-9 of its term), and the flips add
+    up over T x Hq/Hkv terms."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
+    q, k, v, grad = _card_grad_inputs(cuda_device, shape, seed=9)
+    before = dict(fa.launches)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, (q, k, v), grad)
+    torch.cuda.synchronize()
+    assert fa.launches == {**before, "bf16": before["bf16"] + 1,
+                           "bf16_backward": before["bf16_backward"] + 1}
+    _, lse = fa._launch(q.detach(), k.detach(), v.detach(), causal,
+                        keep_lse=True)
+    want = fa.flash_attention_backward_reference(
+        q.detach(), k.detach(), v.detach(), out.detach(), lse, grad,
+        causal=causal)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
+        g, w = g.float(), w.float()
+        assert (g - w).abs().max() <= 1e-2 * w.abs().max(), name
+        assert (g - w).norm() <= 2e-3 * w.norm(), name
+
+
+@pytest.mark.cuda
+def test_backward_is_deterministic_on_card(cuda_device):
+    """Two backwards of one step give the same bits: dK and dV of a KV
+    head are summed over its query heads in one block's registers, dQ in
+    another kernel, with no atomics."""
+    q, k, v, grad = _card_grad_inputs(cuda_device, (2, 2048, 32, 8, 128),
+                                      seed=10)
+    runs = [torch.autograd.grad(fa.flash_attention(q, k, v), (q, k, v),
+                                grad) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _CARD_GRAD_SHAPES)
+def test_serving_forward_is_the_training_forward_on_card(cuda_device, shape):
+    """The serving forward (no grad, ``brt_flash_attention_bf16``) and the
+    training forward that also writes the log-sum-exp give the same bits,
+    and the log-sum-exp is the plain version's within 1e-5 (f32 sums in
+    another order)."""
+    q, k, v, _ = _card_grad_inputs(cuda_device, shape, seed=11)
+    before = dict(fa.launches)
+    train = fa.flash_attention(q, k, v)
+    with torch.no_grad():
+        serve = fa.flash_attention(q, k, v)
+    with torch.inference_mode():
+        inference = fa.flash_attention(q, k, v)
+    assert torch.equal(train.detach(), serve)
+    assert torch.equal(serve, inference)
+    assert fa.launches == {**before, "bf16": before["bf16"] + 3}
+    _, lse = fa._launch(q.detach(), k.detach(), v.detach(), True,
+                        keep_lse=True)
+    _, want = fa._reference(q.detach(), k.detach(), v.detach(), True, 128)
+    assert (lse[..., :shape[1]] - want).abs().max() <= 1e-5
 
 
 @pytest.mark.cuda

@@ -16,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 from brpc_tpu_torch import obs, optim
 from brpc_tpu_torch.models import llama
 from brpc_tpu_torch.obs import rpcz
+from brpc_tpu_torch.ops import flash_attention as fa
 
 
 def _model_and_tokens(device="cpu", seed=0):
@@ -128,6 +129,25 @@ def test_train_step_holds_forward_backward_and_optimizer_in_order():
                                                      phases[0].span_id)
     assert phases[0].start_ns <= forward.start_ns <= forward.end_ns \
         <= phases[0].end_ns
+
+
+@pytest.mark.parametrize("k1", [False, True])
+def test_train_forward_counts_the_layers_whose_attention_ran_k1(
+        monkeypatch, k1):
+    """``train.forward`` counts ``K1_TRAIN_COUNTER`` once a layer whose
+    attention the rule sent to K1 (on the CPU only where ``fa.trains`` is
+    made to say so; the CPU's plain version then runs), and nothing where
+    every layer ran dense attention."""
+    if k1:
+        monkeypatch.setattr(fa, "trains", lambda q: True)
+    cfg, params, tokens = _model_and_tokens()
+    params, step = _train_step(cfg, params)
+    _, spans, _, _ = _traced(lambda: step(params, tokens))
+    (forward,) = [s for s in spans if s.name == "train.forward"]
+    assert forward.counts == ({llama.K1_TRAIN_COUNTER: cfg.n_layers}
+                              if k1 else {})
+    assert all(s.counts == {} for s in spans if s is not forward)
+    step(params, tokens)  # untraced: no span, so nothing to count on
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
