@@ -8,7 +8,14 @@
 // h / (Hq/Hkv); scores are scaled by D^-0.5 in f32; the causal mask value
 // is -1e30; an online softmax (running max, sum and accumulator in f32)
 // streams the K/V tiles, and the output is acc / max(l, 1e-20). Causal K/V
-// tiles wholly past the diagonal are skipped.
+// tiles wholly past the diagonal are skipped. Beyond the reference, the bf16
+// entries take the scale as an argument, and the serving forward, for
+// multi-head latent attention (DeepSeek-V2), v and o at a head dim of their
+// own: q and k at D = 192, v and o [B,T,H,128]. Its bound is then
+// 2*B*Hq*(D + DV) a kept pair; shared memory holds a 48 KB Q tile and a
+// ring of 24 KB K and 16 KB V tiles (128 KB), and the registers are those
+// of D = 128, since the accumulator is DV wide and S = Q K^T only takes 12
+// k16 steps in place of 8.
 //
 // Bound on the H100 SXM: the function needs 4*B*Hq*D operations for every
 // (query, key) pair the mask keeps (2*B*Hq*T*(T+1)*D causal), against 989
@@ -557,7 +564,8 @@ constexpr float kMasked = -1e30f;
 
 template <int D>
 struct Tile {
-  static_assert(D == 32 || D == 64 || D == 128, "D must be 32, 64 or 128");
+  static_assert(D == 32 || D == 64 || D == 128 || D == 192,
+                "D must be 32, 64, 128 or 192");
   // A swizzled row holds one atom of the head dim: 64 bf16 in 128 bytes
   // (32 in 64 bytes at D=32); a tile is D / kAtom atoms side by side.
   static constexpr int kSwizzle = D >= 64 ? 128 : 64;
@@ -568,10 +576,6 @@ struct Tile {
   static constexpr int kKVAtomBytes = kBK * kSwizzle;
   static constexpr int kQBytes = kAtoms * kQAtomBytes;
   static constexpr int kKVBytes = kAtoms * kKVAtomBytes;
-  static constexpr int kBarriers = 1 + 4 * kStages;
-  // Q, the K ring, the V ring, the barriers, and room to align to 1024.
-  static constexpr int kSmem =
-      kQBytes + 2 * kStages * kKVBytes + 8 * kBarriers + 1024;
 
   // K-major operand (Q for S, K for S): 8-row groups kSwizzle*8 apart.
   static __device__ __forceinline__ uint64_t k_major(uint32_t addr) {
@@ -582,6 +586,19 @@ struct Tile {
   static __device__ __forceinline__ uint64_t n_major(uint32_t addr) {
     return smem_desc(addr, kKVAtomBytes, 8 * kSwizzle, kLayout);
   }
+};
+
+// The forward's shared memory at q/k head dim D and v/o head dim DV: Q, the
+// K ring, the V ring, the barriers, and room to align to 1024. The output
+// is staged in Q's rows in V's swizzle, so the two swizzles agree.
+template <int D, int DV>
+struct Fwd {
+  static_assert(Tile<D>::kSwizzle == Tile<DV>::kSwizzle && DV <= D,
+                "o is staged in Q's rows");
+  static constexpr int kBarriers = 1 + 4 * kStages;
+  static constexpr int kSmem =
+      Tile<D>::kQBytes + kStages * (Tile<D>::kKVBytes + Tile<DV>::kKVBytes) +
+      8 * kBarriers + 1024;
 };
 
 template <int D>
@@ -626,11 +643,12 @@ __device__ __forceinline__ void stage_rows(const float (&acc)[D / 2], F f,
   }
 }
 
-// The kernel's body; with kLse it also writes each query row's
-// log-sum-exp of the scaled scores, ln(sum_j exp(s_j * D^-0.5)), f32, into
-// lse[(b * Hq + h) * ld + row] for every row of the block's tile (rows past
-// T read zero queries and give finite values), for the backward.
-template <int D, bool kLse>
+// The kernel's body at q/k head dim D and v/o head dim DV; scale_log2 is
+// the softmax scale times log2(e). With kLse it also writes each query
+// row's log-sum-exp of the scaled scores, ln(sum_j exp(s_j * scale)), f32,
+// into lse[(b * Hq + h) * ld + row] for every row of the block's tile
+// (rows past T read zero queries and give finite values), for the backward.
+template <int D, int DV, bool kLse>
 __device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q,
                                          const CUtensorMap& tm_k,
                                          const CUtensorMap& tm_v,
@@ -638,12 +656,13 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q,
                                          int group, int causal,
                                          float scale_log2, float* lse,
                                          int ld) {
-  using G = Tile<D>;
+  using G = Tile<D>;    // Q and K
+  using GV = Tile<DV>;  // V and O
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t k_s = q_s + G::kQBytes;
   const uint32_t v_s = k_s + kStages * G::kKVBytes;
-  const uint32_t bars = v_s + kStages * G::kKVBytes;
+  const uint32_t bars = v_s + kStages * GV::kKVBytes;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
   auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
@@ -685,10 +704,10 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q,
           tma_load_4d(k_s + s * G::kKVBytes + a * G::kKVAtomBytes, &tm_k,
                       k_full(s), a * G::kAtom, hk, n * kBK, b);
         mbar_wait(v_empty(s), free_parity);
-        mbar_expect_tx(v_full(s), G::kKVBytes);
-        for (int a = 0; a < G::kAtoms; ++a)
-          tma_load_4d(v_s + s * G::kKVBytes + a * G::kKVAtomBytes, &tm_v,
-                      v_full(s), a * G::kAtom, hk, n * kBK, b);
+        mbar_expect_tx(v_full(s), GV::kKVBytes);
+        for (int a = 0; a < GV::kAtoms; ++a)
+          tma_load_4d(v_s + s * GV::kKVBytes + a * GV::kKVAtomBytes, &tm_v,
+                      v_full(s), a * GV::kAtom, hk, n * kBK, b);
       }
     }
   } else {
@@ -705,9 +724,9 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q,
         causal ? min((first_row + 63) / kBK + 1, n_all) : n_all;
     const uint32_t q_mine = q_s + 64 * w * G::kSwizzle;
 
-    float acc[D / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float sc[kBK / 2];  // S of the newest tile, then its P in f32
     uint32_t p_hi[kBK / 16][4], p_lo[kBK / 16][4];  // P as A fragments
     float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
@@ -727,17 +746,17 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q,
     };
     // O += P_hi V + P_lo V of tile n, 16 keys at a time (not committed).
     auto issue_pv = [&](int n) {
-      const uint32_t v_tile = v_s + (n % kStages) * G::kKVBytes;
+      const uint32_t v_tile = v_s + (n % kStages) * GV::kKVBytes;
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint64_t desc_v = G::n_major(v_tile + kk * 16 * G::kSwizzle);
-        wgmma_pv<D>(acc, p_hi[kk], desc_v);
-        wgmma_pv<D>(acc, p_lo[kk], desc_v);
+        const uint64_t desc_v = GV::n_major(v_tile + kk * 16 * GV::kSwizzle);
+        wgmma_pv<DV>(acc, p_hi[kk], desc_v);
+        wgmma_pv<DV>(acc, p_lo[kk], desc_v);
       }
     };
     // Mask and the online softmax step of tile n on sc, in registers;
     // leaves P in sc and the rescale of acc in alpha. The running max is
-    // kept in unscaled units and D^-0.5*log2(e) enters each exponent in
+    // kept in unscaled units and scale*log2(e) enters each exponent in
     // one fma: p = 2^(s*c - m*c). Register i holds row r0 + 8*((i/2)%2),
     // column 8*(i/4) + cq + i%2.
     auto softmax = [&](int n) {
@@ -791,7 +810,7 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q,
     };
     auto rescale_acc = [&]() {
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+      for (int i = 0; i < DV / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
     };
     auto parity = [](int n) { return uint32_t((n / kStages) & 1); };
     auto release = [&](uint32_t bar) {
@@ -880,13 +899,13 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q,
       }
     }
     named_barrier(1 + w, 128);  // every warp's last product read Q
-    stage_rows<D>(acc, [&](float x, int half) { return x / l[half]; },
-                  q_mine, G::kQAtomBytes, r0, cq);
+    stage_rows<DV>(acc, [&](float x, int half) { return x / l[half]; },
+                   q_mine, G::kQAtomBytes, r0, cq);
     fence_proxy_async();
     named_barrier(1 + w, 128);
     if (t == 0 && first_row < seq) {
-      for (int a = 0; a < G::kAtoms; ++a)
-        tma_store_4d(&tm_o, q_mine + a * G::kQAtomBytes, a * G::kAtom, h,
+      for (int a = 0; a < GV::kAtoms; ++a)
+        tma_store_4d(&tm_o, q_mine + a * G::kQAtomBytes, a * GV::kAtom, h,
                      first_row, b);
       tma_store_commit_and_wait();
     }
@@ -894,15 +913,15 @@ __device__ __forceinline__ void fwd_body(const CUtensorMap& tm_q,
 }
 
 // Serving: the output alone.
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            const __grid_constant__ CUtensorMap tm_o, int seq,
                            int group, int causal, float scale_log2) {
-  fwd_body<D, false>(tm_q, tm_k, tm_v, tm_o, seq, group, causal, scale_log2,
-                     nullptr, 0);
+  fwd_body<D, DV, false>(tm_q, tm_k, tm_v, tm_o, seq, group, causal,
+                         scale_log2, nullptr, 0);
 }
 
 // Training: the output and each row's log-sum-exp.
@@ -914,8 +933,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                                const __grid_constant__ CUtensorMap tm_o,
                                int seq, int group, int causal,
                                float scale_log2, float* lse, int ld) {
-  fwd_body<D, true>(tm_q, tm_k, tm_v, tm_o, seq, group, causal, scale_log2,
-                    lse, ld);
+  fwd_body<D, D, true>(tm_q, tm_k, tm_v, tm_o, seq, group, causal,
+                       scale_log2, lse, ld);
 }
 
 // A map of a contiguous bf16 [B,T,H,D] tensor whose box is `rows` positions
@@ -929,31 +948,30 @@ bool encode(CUtensorMap* map, const void* ptr, int b, int seq, int heads,
 }
 
 // With `lse` null the serving kernel, else the one that also writes the
-// log-sum-exp, [B, Hq, ld] f32 with ld = T rounded up to 128.
-template <int D>
+// log-sum-exp, [B, Hq, ld] f32 with ld = T rounded up to 128 (D == DV only).
+template <int D, int DV>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      float* lse, int b, int seq, int hq, int hkv, int causal,
-                     cudaStream_t stream) {
+                     float scale_log2, cudaStream_t stream) {
   // TMA reads and writes 16-byte aligned tensors.
   if ((uintptr_t(q) | uintptr_t(k) | uintptr_t(v) | uintptr_t(o)) % 16)
     return cudaErrorMisalignedAddress;
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   if (!encode<D>(&tm_q, q, b, seq, hq, kBQ) ||
       !encode<D>(&tm_k, k, b, seq, hkv, kBK) ||
-      !encode<D>(&tm_v, v, b, seq, hkv, kBK) ||
-      !encode<D>(&tm_o, o, b, seq, hq, 64))
+      !encode<DV>(&tm_v, v, b, seq, hkv, kBK) ||
+      !encode<DV>(&tm_o, o, b, seq, hq, 64))
     return cudaErrorInvalidValue;
-  constexpr int smem = Tile<D>::kSmem;
+  constexpr int smem = Fwd<D, DV>::kSmem;
   const dim3 grid((seq + kBQ - 1) / kBQ, hq, b);
-  const float scale_log2 = float(1.4426950408889634 / sqrt(double(D)));
   if (lse == nullptr) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_wgmma_kernel<D>,
+        flash_fwd_wgmma_kernel<D, DV>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    flash_fwd_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+    flash_fwd_wgmma_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
         tm_q, tm_k, tm_v, tm_o, seq, hq / hkv, causal, scale_log2);
-  } else {
+  } else if constexpr (D == DV) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_lse_wgmma_kernel<D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -961,27 +979,44 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
     flash_fwd_lse_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
         tm_q, tm_k, tm_v, tm_o, seq, hq / hkv, causal, scale_log2, lse,
         (seq + kBQ - 1) / kBQ * kBQ);
+  } else {
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
+// q/k head dim d, v/o head dim dv: (32, 32), (64, 64), (128, 128) or
+// (192, 128); the scores are scaled by scale_log2 / log2(e).
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int b, int seq, int hq, int hkv, int d, int causal, void* stream) {
+           int b, int seq, int hq, int hkv, int d, int dv, int causal,
+           float scale_log2, void* stream) {
   if (b <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0)
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 32:
-      return int(launch_d<32>(q, k, v, o, lse, b, seq, hq, hkv, causal, s));
-    case 64:
-      return int(launch_d<64>(q, k, v, o, lse, b, seq, hq, hkv, causal, s));
-    case 128:
-      return int(launch_d<128>(q, k, v, o, lse, b, seq, hq, hkv, causal, s));
-    default: return int(cudaErrorInvalidValue);
-  }
+  const auto pair = [&](int x, int y) { return d == x && dv == y; };
+  if (pair(32, 32))
+    return int(launch_d<32, 32>(q, k, v, o, lse, b, seq, hq, hkv, causal,
+                                scale_log2, s));
+  if (pair(64, 64))
+    return int(launch_d<64, 64>(q, k, v, o, lse, b, seq, hq, hkv, causal,
+                                scale_log2, s));
+  if (pair(128, 128))
+    return int(launch_d<128, 128>(q, k, v, o, lse, b, seq, hq, hkv, causal,
+                                  scale_log2, s));
+  if (pair(192, 128))
+    return int(launch_d<192, 128>(q, k, v, o, lse, b, seq, hq, hkv, causal,
+                                  scale_log2, s));
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace wg
+
+// The factor on the scores in each exponent, 2^(s * c - m * c): the softmax
+// scale the caller gives (D^-0.5 by default, computed by the caller once for
+// every bf16 entry) times log2(e), rounded once to f32.
+inline float scale_log2_of(double scale) {
+  return float(1.4426950408889634 * scale);
+}
 
 // ---- bf16 backward: wgmma and TMA ------------------------------------------
 
@@ -1396,7 +1431,7 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse,
                      float* delta, void* dq, void* dk, void* dv, int b,
                      int seq, int hq, int hkv, int causal,
-                     cudaStream_t stream) {
+                     double softmax_scale, cudaStream_t stream) {
   if ((uintptr_t(q) | uintptr_t(k) | uintptr_t(v) | uintptr_t(o) |
        uintptr_t(dout) | uintptr_t(lse) | uintptr_t(delta) | uintptr_t(dq) |
        uintptr_t(dk) | uintptr_t(dv)) % 16)
@@ -1425,8 +1460,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
       !wg::encode<D>(&tq_v, v, b, seq, hkv, kBN) ||
       !wg::encode<D>(&tq_dq, dq, b, seq, hq, 64))
     return cudaErrorInvalidValue;
-  const float scale = float(1.0 / sqrt(double(D)));
-  const float scale_log2 = float(1.4426950408889634 / sqrt(double(D)));
+  const float scale = float(softmax_scale);
+  const float scale_log2 = scale_log2_of(softmax_scale);
   const int group = hq / hkv;
 
   constexpr int dkdv_smem =
@@ -1461,17 +1496,17 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int b, int seq, int hq, int hkv, int d,
-           int causal, void* stream) {
+           int causal, double scale, void* stream) {
   if (b <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0)
     return int(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
       return int(launch_d<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b,
-                              seq, hq, hkv, causal, s));
+                              seq, hq, hkv, causal, scale, s));
     case 128:
       return int(launch_d<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b,
-                               seq, hq, hkv, causal, s));
+                               seq, hq, hkv, causal, scale, s));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -1487,31 +1522,43 @@ extern "C" int brt_flash_attention_f32(const void* q, const void* k,
   return tf32::launch(q, k, v, o, b, seq, hq, hkv, d, causal, stream);
 }
 
+// The bf16 entries take the scores' scale from the caller, which gives
+// D^-0.5 unless it asks for another, so that serving, the forward that
+// trains and the backward scale alike.
+//
+// The bf16 serving forward at q/k head dim d and v/o head dim dv (v and o
+// are [B,T,H,dv]), the scores scaled by `scale`.
 extern "C" int brt_flash_attention_bf16(const void* q, const void* k,
                                         const void* v, void* o, int b, int seq,
-                                        int hq, int hkv, int d, int causal,
+                                        int hq, int hkv, int d, int dv,
+                                        int causal, double scale,
                                         void* stream) {
-  return wg::launch(q, k, v, o, nullptr, b, seq, hq, hkv, d, causal, stream);
+  return wg::launch(q, k, v, o, nullptr, b, seq, hq, hkv, d, dv, causal,
+                    scale_log2_of(scale), stream);
 }
 
 // The bf16 forward for training: also writes lse, [B, Hq, ld] f32 with ld =
-// T rounded up to 128, each row's log-sum-exp of its scaled scores.
+// T rounded up to 128, each row's log-sum-exp of its scores scaled by
+// `scale`.
 extern "C" int brt_flash_attention_bf16_lse(const void* q, const void* k,
                                             const void* v, void* o, float* lse,
                                             int b, int seq, int hq, int hkv,
-                                            int d, int causal, void* stream) {
+                                            int d, int causal, double scale,
+                                            void* stream) {
   if (lse == nullptr) return int(cudaErrorInvalidValue);
-  return wg::launch(q, k, v, o, lse, b, seq, hq, hkv, d, causal, stream);
+  return wg::launch(q, k, v, o, lse, b, seq, hq, hkv, d, d, causal,
+                    scale_log2_of(scale), stream);
 }
 
 // The bf16 backward: dq, dk, dv (contiguous bf16, shaped as q, k, v) from
 // the forward's inputs, its output o, the output's gradient dout and lse;
-// delta is scratch of lse's shape. D is 64 or 128.
+// delta is scratch of lse's shape. D is 64 or 128; `scale` is the
+// forward's.
 extern "C" int brt_flash_attention_bf16_backward(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, int b, int seq, int hq, int hkv, int d, int causal,
-    void* stream) {
+    double scale, void* stream) {
   return bwd::launch(q, k, v, o, dout, lse, delta, dq, dk, dv, b, seq, hq,
-                     hkv, d, causal, stream);
+                     hkv, d, causal, scale, stream);
 }

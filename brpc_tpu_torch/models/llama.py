@@ -1,4 +1,6 @@
-"""Llama-family transformer in PyTorch: the port of ``brpc_tpu/models/llama.py``.
+"""Decoder-only transformers in PyTorch: the port of
+``brpc_tpu/models/llama.py``, its Llama-family block, and the expert and
+latent-attention blocks of Mixtral and DeepSeek-V2 on the same path.
 
 The layout and the numerics follow the reference so that the same weights
 give the same logits:
@@ -17,10 +19,22 @@ give the same logits:
 - a config with experts (``n_experts`` > 0, Mixtral's layer) runs
   ``models.moe.expert_layer`` in place of the MLP: a router ``w_router``
   [h, E] and stacked experts ``w_gate``/``w_up`` [E, h, f] and ``w_down``
-  [E, f, h] a layer, top-``experts_per_token`` and dropless. Such a
-  config is served and runs the functional ``forward``; it has no
-  sharded layout (``param_specs`` raises), and training it is not
-  supported.
+  [E, f, h] a layer, top-``experts_per_token`` and dropless. DeepSeek-V2's
+  expert layer adds shared experts (``n_shared_experts``: ``shared_gate``,
+  ``shared_up`` [h, n·f], ``shared_down``), keeps the top probabilities
+  unrenormalised (``norm_topk_prob`` false) and follows
+  ``first_dense_layers`` dense layers, whose MLP is stacked apart
+  (``mlp_gate``, ``mlp_up``, ``mlp_down``); ``expert_intermediate`` is
+  then an expert's width. Such a config is served and runs the functional
+  ``forward``; it has no sharded layout (``param_specs`` raises), and
+  training it is not supported;
+- a config with ``kv_lora_rank`` > 0 runs DeepSeek-V2's multi-head latent
+  attention (``models.mla``) in place of grouped-query attention: latent
+  projections ``wq``, ``w_kva``, ``kv_norm``, ``w_kvb``, rope (YaRN's
+  where ``rope_scaling`` is given) on ``qk_rope_head_dim`` of each query
+  and key head, and ``attn_fn`` called with the scores' ``scale``, at q/k
+  head dim ``qk_nope_head_dim + qk_rope_head_dim`` and v head dim
+  ``v_head_dim``.
 
 ``attn_fn`` is pluggable as in the reference; pass
 ``brpc_tpu_torch.ops.flash_attention.flash_attention`` for the CUDA kernel
@@ -31,9 +45,10 @@ the kernels take, and with dense attention elsewhere (the CPU, f32, the
 sharded step).
 
 ``LlamaModel`` replays its forward from a CUDA graph, one a prompt shape,
-where the tokens are on CUDA, the config is dense (no experts) and no
-weight requires grad; anywhere else (the CPU, an expert config, weights
-being trained) it runs ``forward`` as it is. A replay copies the tokens
+where the tokens are on CUDA, the config is dense (no experts) with
+grouped-query attention and no weight requires grad; anywhere else (the
+CPU, an expert or latent-attention config, weights being trained) it runs
+``forward`` as it is. A replay copies the tokens
 into the graph's input, replays the graph and casts the head's output
 into fresh f32 logits, so the host enqueues three operations a request
 instead of some two thousand; it gains only where prompt shapes (batch
@@ -47,8 +62,9 @@ the graphs serves every later shape with ``forward``. No benchmark cell
 sends such traffic; a cell of jittered prompt lengths (ROADMAP 3.8) is
 the one that would bring back an eviction rule, if it shows a loss. The
 graphs' pool, which they share, holds besides their logits the largest
-captured shape's activations. The expert layer's spans are why a config
-with experts is not graphed: a replay would not record them.
+captured shape's activations. The expert layer's and latent attention's
+spans are why a config with either is not graphed: a replay would not
+record them.
 
 While the program is traced (``obs.rpcz.trace``: a ``torch.profiler``
 session runs), ``forward`` records the span ``llama.forward``, and
@@ -77,7 +93,8 @@ from torch.distributed.tensor import DTensor
 from torch.nn import functional as F
 
 from brpc_tpu_torch.analysis.race import checked_lock
-from brpc_tpu_torch.models import moe
+from brpc_tpu_torch.models import mla, moe
+from brpc_tpu_torch.models.norm import rms_norm
 from brpc_tpu_torch.obs import rpcz
 from brpc_tpu_torch.ops import flash_attention as fa
 from brpc_tpu_torch.parallel import functional as pf
@@ -114,12 +131,36 @@ class LlamaConfig:
     param_dtype: torch.dtype = torch.float32   # master weights
     n_experts: int = 0            # 0: the dense MLP
     experts_per_token: int = 0
+    # DeepSeek-V2's expert stack: dense layers first, then expert layers
+    # of expert_intermediate (0: intermediate) with shared experts.
+    first_dense_layers: int = 0
+    expert_intermediate: int = 0
+    n_shared_experts: int = 0
+    norm_topk_prob: bool = True
+    # Multi-head latent attention where kv_lora_rank > 0 (models.mla).
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    rope_scaling: Optional[mla.Yarn] = None
 
     def __post_init__(self):
         if self.n_experts and not 0 < self.experts_per_token \
                 <= self.n_experts:
             raise ValueError(f"experts_per_token {self.experts_per_token} "
                              f"with {self.n_experts} experts")
+        if (self.first_dense_layers or self.n_shared_experts) and not \
+                (self.n_experts and self.first_dense_layers < self.n_layers):
+            raise ValueError("dense layers first and shared experts need "
+                             "experts and an expert layer")
+        mla_dims = (self.qk_nope_head_dim, self.qk_rope_head_dim,
+                    self.v_head_dim)
+        if self.kv_lora_rank and (min(mla_dims) <= 0
+                                  or self.qk_rope_head_dim % 2):
+            raise ValueError(f"latent attention needs positive head dims "
+                             f"and an even rope dim; got {mla_dims}")
+        if self.rope_scaling is not None and not self.kv_lora_rank:
+            raise ValueError("rope_scaling is read by latent attention only")
 
     @staticmethod
     def tiny(vocab_size: int = 512) -> "LlamaConfig":
@@ -139,21 +180,44 @@ class LlamaConfig:
         return LlamaConfig()  # defaults are Llama-3-8B
 
 
+#: The leaves of the dense layers of an expert stack with
+#: ``first_dense_layers``, stacked over those layers, by the MLP's names
+#: they are served under ...
+DENSE_LEAVES = {"mlp_gate": "w_gate", "mlp_up": "w_up", "mlp_down": "w_down"}
+#: ... and the leaves of an expert config's expert layers, stacked over the
+#: layers that follow them.
+EXPERT_LEAVES = ("w_router", "w_gate", "w_up", "w_down", "shared_gate",
+                 "shared_up", "shared_down")
+
+
 def param_shapes(cfg: LlamaConfig) -> Params:
     """The shape of every parameter, in the layout of ``init_params``."""
     h, L, f, e = cfg.hidden, cfg.n_layers, cfg.intermediate, cfg.n_experts
-    q_out = cfg.n_heads * cfg.head_dim
-    kv_out = cfg.n_kv_heads * cfg.head_dim
-    ffn = {"w_router": (L, h, e), "w_gate": (L, e, h, f),
-           "w_up": (L, e, h, f), "w_down": (L, e, f, h)} if e else \
-        {"w_gate": (L, h, f), "w_up": (L, h, f), "w_down": (L, f, h)}
+    if cfg.kv_lora_rank:
+        attn = {name: (L, *shape)
+                for name, shape in mla.layer_shapes(cfg).items()}
+    else:
+        q_out = cfg.n_heads * cfg.head_dim
+        kv_out = cfg.n_kv_heads * cfg.head_dim
+        attn = {"wq": (L, h, q_out), "wk": (L, h, kv_out),
+                "wv": (L, h, kv_out), "wo": (L, q_out, h)}
+    if e:
+        d, fe = cfg.first_dense_layers, cfg.expert_intermediate or f
+        le, fs = L - d, cfg.n_shared_experts * fe
+        ffn = {"w_router": (le, h, e), "w_gate": (le, e, h, fe),
+               "w_up": (le, e, h, fe), "w_down": (le, e, fe, h)}
+        if fs:
+            ffn.update(shared_gate=(le, h, fs), shared_up=(le, h, fs),
+                       shared_down=(le, fs, h))
+        if d:
+            ffn.update(mlp_gate=(d, h, f), mlp_up=(d, h, f),
+                       mlp_down=(d, f, h))
+    else:
+        ffn = {"w_gate": (L, h, f), "w_up": (L, h, f), "w_down": (L, f, h)}
     return {
         "embed": (cfg.vocab_size, h),
         "layers": {
-            "wq": (L, h, q_out),
-            "wk": (L, h, kv_out),
-            "wv": (L, h, kv_out),
-            "wo": (L, q_out, h),
+            **attn,
             **ffn,
             "attn_norm": (L, h),
             "mlp_norm": (L, h),
@@ -199,9 +263,10 @@ def param_specs(cfg: LlamaConfig) -> Params:
     products column-sharded over 'tp', their second products row-sharded,
     the embedding and the LM head sharded by vocabulary. ``make_train_step``
     runs per-rank tensor-parallel code on params laid out by them. A config
-    with experts has no such layout: ``ValueError``."""
-    if cfg.n_experts:
-        raise ValueError("no sharded layout for a config with experts")
+    with experts or latent attention has no such layout: ``ValueError``."""
+    if cfg.n_experts or cfg.kv_lora_rank:
+        raise ValueError("no sharded layout for a config with experts or "
+                         "latent attention")
     column, row, whole = P(None, None, "tp"), P(None, "tp", None), \
         P(None, None)
     layers = {"wq": column, "wk": column, "wv": column, "wo": row,
@@ -214,13 +279,6 @@ def param_specs(cfg: LlamaConfig) -> Params:
 def batch_specs() -> P:
     """Token batches are sharded over the data-parallel axis."""
     return P("dp", None)
-
-
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """Reduce in f32, cast to x's dtype, then scale by w in that dtype."""
-    x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -239,82 +297,96 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True) -> torch.Tensor:
-    """Dense grouped-query attention. q: [B,T,Hq,D], k/v: [B,T,Hkv,D] ->
-    [B,T,Hq*D]. The scores are computed in q's dtype and then cast to f32,
-    scaled after the product, masked with -inf; the probabilities are cast
-    to v's dtype before the PV product."""
+              causal: bool = True,
+              scale: float | None = None) -> torch.Tensor:
+    """Dense grouped-query attention. q: [B,T,Hq,D], k: [B,T,Hkv,D], v:
+    [B,T,Hkv,Dv] -> [B,T,Hq*Dv]. The scores are computed in q's dtype and
+    then cast to f32, scaled after the product (by ``scale``; None:
+    D**-0.5), masked with -inf; the probabilities are cast to v's dtype
+    before the PV product."""
     b, t, hq, d = q.shape
     hkv = k.shape[2]
     q = q.reshape(b, t, hkv, hq // hkv, d)
     scores = torch.einsum("bthgd,bshd->bhgts", q, k).float()
-    scores = scores * d ** -0.5
+    scores = scores * (d ** -0.5 if scale is None else scale)
     if causal:
         mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~mask, -torch.inf)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs, v)
-    return out.reshape(b, t, hq * d)
+    return out.reshape(b, t, hq * v.shape[-1])
 
 
 def train_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, span=None) -> torch.Tensor:
+                    causal: bool = True, span=None,
+                    scale: float | None = None) -> torch.Tensor:
     """The unsharded train step's attention where it is given no
     ``attn_fn``: K1's forward and backward (``flash_attention``) where its
     kernels train on q (``flash_attention.trains``: CUDA bf16 at a head dim
-    and T they take), so no T x T scores are made, counting
-    ``K1_TRAIN_COUNTER`` on ``span`` (a traced ``train.forward``; None
-    counts nothing); dense ``attention`` elsewhere, the CPU among them."""
-    if fa.trains(q):
+    and T they take) and no ``scale`` is given, so no T x T scores are
+    made, counting ``K1_TRAIN_COUNTER`` on ``span`` (a traced
+    ``train.forward``; None counts nothing); dense ``attention``
+    elsewhere, the CPU among them."""
+    if fa.trains(q) and scale is None:
         if span is not None:
             span.count(K1_TRAIN_COUNTER, 1)
         return fa.flash_attention(q, k, v, causal=causal)
-    return attention(q, k, v, causal=causal)
+    return attention(q, k, v, causal=causal, scale=scale)
 
 
 def _layers(cfg: LlamaConfig, x: torch.Tensor, positions: torch.Tensor,
-            weights, attn_fn: Optional[AttnFn], tp,
-            feed_forward: Callable) -> torch.Tensor:
+            weights, attn_fn: Optional[AttnFn], tp, feed_forward: Callable,
+            latent: Callable) -> torch.Tensor:
     """The decoder layers in turn: ``weights`` gives each layer's weights
-    in ``cfg.dtype`` and ``feed_forward(cfg, y, lp, tp)`` its feed-forward
-    (``_feed_forward``). It is an argument so that the body a CUDA graph
-    captures, which only a dense config runs, reaches in the call graph no
-    span of the expert layer, which no replay would record. With a
+    in ``cfg.dtype``, ``feed_forward(cfg, y, lp, tp)`` its feed-forward
+    (``_feed_forward``) and, for latent attention, ``latent(cfg, y, lp,
+    positions, attend)`` its attention (``mla.attention``). They are
+    arguments so that the body a CUDA graph captures, which only a config
+    without either runs, reaches in the call graph no span of the expert
+    layer or of latent attention, which no replay would record (the
+    trace-purity lint finds the spans' locks otherwise). With a
     'tp' group (dense configs only), each ``lp`` holds this rank's
     Megatron shards: the heads and the MLP's intermediate columns it owns
     (column-parallel products after ``copy_to``), and the matching rows of
     ``wo`` and ``w_down`` (``row_parallel``)."""
     for lp in weights:
-        x, y = _attention_half(cfg, x, lp, positions, attn_fn, tp)
+        x, y = _attention_half(cfg, x, lp, positions, attn_fn, tp, latent)
         x = x + feed_forward(cfg, y, lp, tp)
     return x
 
 
 def _feed_forward(cfg: LlamaConfig, y: torch.Tensor, lp: Params,
                   tp) -> torch.Tensor:
-    """A layer's feed-forward: the MLP or, for a config with experts,
-    ``moe.expert_layer``."""
-    if cfg.n_experts:
+    """A layer's feed-forward: ``moe.expert_layer`` for a layer with a
+    router (with its shared experts where it has them), else the MLP."""
+    if "w_router" in lp:
+        shared = (lp["shared_gate"], lp["shared_up"], lp["shared_down"]) \
+            if "shared_gate" in lp else None
         return moe.expert_layer(y, lp["w_router"], lp["w_gate"],
                                 lp["w_up"], lp["w_down"],
-                                cfg.experts_per_token)
+                                cfg.experts_per_token, shared=shared,
+                                normalise=cfg.norm_topk_prob)
     return _mlp(cfg, y, lp, tp)
 
 
 def _attention_half(cfg: LlamaConfig, x: torch.Tensor, lp: Params,
                     positions: torch.Tensor, attn_fn: Optional[AttnFn],
-                    tp) -> tuple:
+                    tp, latent: Callable) -> tuple:
     """A layer up to its feed-forward: the residual after attention, and
     its norm, the feed-forward's input."""
     b, t, _ = x.shape
     y = pf.copy_to(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
-    q = (y @ lp["wq"]).reshape(b, t, -1, cfg.head_dim)
-    k = (y @ lp["wk"]).reshape(b, t, -1, cfg.head_dim)
-    v = (y @ lp["wv"]).reshape(b, t, -1, cfg.head_dim)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
     attend = attn_fn if attn_fn is not None else attention
-    x = x + pf.row_parallel(attend(q, k, v), lp["wo"], tp)
+    if cfg.kv_lora_rank:
+        o = latent(cfg, y, lp, positions, attend)
+    else:
+        q = (y @ lp["wq"]).reshape(b, t, -1, cfg.head_dim)
+        k = (y @ lp["wk"]).reshape(b, t, -1, cfg.head_dim)
+        v = (y @ lp["wv"]).reshape(b, t, -1, cfg.head_dim)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        o = attend(q, k, v)
+    x = x + pf.row_parallel(o, lp["wo"], tp)
     return x, pf.copy_to(rms_norm(x, lp["mlp_norm"], cfg.norm_eps), tp)
 
 
@@ -356,12 +428,34 @@ def _forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     # once, where indexing w[i] would add a zero-filled gradient of the
     # whole stack for every layer.
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
-    weights = ({name: _cast(ws[i], cfg.dtype) for name, ws in layers.items()}
+    weights = ({name: _cast(w, cfg.dtype)
+                for name, w in _layer_weights(cfg, layers, i).items()}
                for i in range(cfg.n_layers))
-    x = _layers(cfg, x, positions, weights, attn_fn, ranks.tp, _feed_forward)
+    x = _layers(cfg, x, positions, weights, attn_fn, ranks.tp, _feed_forward,
+                mla.attention)
     head = _head(cfg, x, _cast(params["final_norm"], cfg.dtype),
                  _cast(params["lm_head"], cfg.dtype), ranks.tp)
     return pf.gather_from(head, ranks.tp)
+
+
+def _layer_weights(cfg: LlamaConfig, layers: dict, i: int) -> dict:
+    """Layer i's weights from the stacks ``layers`` (each unbound over its
+    layers): a stack over every layer gives its i-th; with
+    ``first_dense_layers`` d, the dense MLP's stacks give layers below d
+    under the MLP's names and the expert leaves' stacks the layers from d
+    on."""
+    d = cfg.first_dense_layers
+    out = {}
+    for name, ws in layers.items():
+        if name in DENSE_LEAVES:
+            if i < d:
+                out[DENSE_LEAVES[name]] = ws[i]
+        elif cfg.n_experts and name in EXPERT_LEAVES:
+            if i >= d:
+                out[name] = ws[i - d]
+        else:
+            out[name] = ws[i]
+    return out
 
 
 def _cast(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -572,8 +666,10 @@ class LlamaModel(nn.Module):
 
     def _replays(self, device: torch.device) -> bool:
         """Whether a call on ``device`` takes the graph path: CUDA, a
-        dense config, and no weight that requires grad."""
-        return device.type == "cuda" and not self.cfg.n_experts \
+        dense config without latent attention, and no weight that requires
+        grad."""
+        return device.type == "cuda" \
+            and not (self.cfg.n_experts or self.cfg.kv_lora_rank) \
             and not any(p.requires_grad for p in self.parameters())
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -2,27 +2,34 @@
 
 Two layers live here. ``moe_layer`` is the port of
 ``brpc_tpu/models/moe.py``, the Switch layer described below.
-``expert_layer`` is the dropless top-k SwiGLU layer of Mixtral, which
-``models.llama`` runs in place of the MLP for a config with experts:
+``expert_layer`` is the dropless top-k SwiGLU layer of Mixtral and of
+DeepSeek-V2, which ``models.llama`` runs in place of the MLP for a config
+with experts:
 
 - the router's logits and softmax in f32 over all E experts, the k most
   probable experts of each token (ties to the lower index) and their
-  probabilities renormalised to sum to one (``route``);
+  probabilities renormalised to sum to one (Mixtral) or kept as they are
+  (DeepSeek-V2's ``norm_topk_prob: false``; ``route``);
 - no capacity: the T·k (token, expert) pairs are sorted by expert, the
   rows gathered in that order, and the per-expert offsets found on the
   device, so nothing is read back to the host inside a request;
 - the held experts' ``down(silu(gate(x)) * up(x))`` as grouped products
   (``torch._grouped_mm``, one group an expert), then each pair's row
   scaled by its weight and added into its token's row in f32
-  (``index_add_``), rounded once to x's dtype.
+  (``index_add_``), rounded once to x's dtype;
+- where the layer has shared experts (DeepSeek-V2's), their SwiGLU, one
+  product of their summed width, over every row, its output the f32 sum's
+  starting value, so it too is rounded once.
 
 A rank that holds experts ``held`` of the E computes only their part of
 the result; over an 'ep' group, ``reduce_from`` completes the sum. While
 the program is traced (``obs.rpcz.trace``), each call records three
 marked spans: ``moe.route`` (routing, sort, gather and offsets; counters
 ``pairs`` and ``experts``), ``moe.experts`` (the grouped products and
-SiLU·up; its ``kernels`` counted where the grouped products run on the
-card in bf16, so it launches only its start marker) and ``moe.combine``.
+SiLU·up, and the shared experts' products; counter ``shared``, the rows
+the shared experts ran, 0 without them; its ``kernels`` counted where the
+grouped products run on the card in bf16 and there are no shared experts,
+so it launches only its start marker) and ``moe.combine``.
 
 Expert parallelism is the PartitionChannel shape at the model tier:
 tokens are requests routed to expert partitions. The Switch layer, as in
@@ -174,37 +181,43 @@ def moe_layer(params: Params, x: torch.Tensor,
 _GROUPED_MM_KERNELS = 2
 
 
-def route(xf: torch.Tensor, w_router: torch.Tensor,
-          k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def route(xf: torch.Tensor, w_router: torch.Tensor, k: int,
+          normalise: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k routing of the rows xf [N, H] over the router's E experts:
     logits and softmax in f32, the k most probable experts in order of
     probability (a stable sort, so ties go to the lower index), and their
-    probabilities over their sum. Returns (weights [N, k] f32, experts
-    [N, k] int64)."""
+    probabilities over their sum or, with ``normalise`` false, as they
+    are. Returns (weights [N, k] f32, experts [N, k] int64)."""
     probs = torch.softmax(xf.float() @ w_router.float(), dim=-1)
     top, experts = torch.sort(probs, dim=-1, descending=True, stable=True)
     top = top[:, :k]
-    return top / top.sum(dim=-1, keepdim=True), experts[:, :k]
+    if normalise:
+        top = top / top.sum(dim=-1, keepdim=True)
+    return top, experts[:, :k]
 
 
 def expert_layer(x: torch.Tensor, w_router: torch.Tensor,
                  w_gate: torch.Tensor, w_up: torch.Tensor,
                  w_down: torch.Tensor, k: int, held: range | None = None,
-                 group=None) -> torch.Tensor:
+                 group=None, shared: tuple | None = None,
+                 normalise: bool = True) -> torch.Tensor:
     """x [B, T, H] -> [B, T, H]: the part of the dropless top-k SwiGLU
     layer that experts ``held`` (a range of the router's E; all of them
     by default) give, summed over ``group`` where one is given.
 
     ``w_router`` [H, E]; ``w_gate``, ``w_up`` [E_held, H, F] and
     ``w_down`` [E_held, F, H] hold the experts ``held``, in order. A
-    token's pair with an expert held elsewhere adds nothing here."""
+    token's pair with an expert held elsewhere adds nothing here.
+    ``shared`` (gate [H, Fs], up [H, Fs], down [Fs, H]) is the shared
+    experts' SwiGLU, added once for every row (over a group, give it to
+    one rank). ``normalise`` is ``route``'s."""
     b, t, h = x.shape
     n, e = b * t, w_router.shape[1]
     held = range(e) if held is None else held
     mine = len(held)
     xf = x.reshape(n, h)
     with rpcz.trace("moe", "route", mark=x) as sp:
-        weights, experts = route(xf, w_router, k)
+        weights, experts = route(xf, w_router, k, normalise)
         key = experts.reshape(-1) - held.start
         if mine < e:  # pairs of experts held elsewhere sort last
             key = torch.where((key >= 0) & (key < mine), key, mine)
@@ -220,13 +233,19 @@ def expert_layer(x: torch.Tensor, w_router: torch.Tensor,
         gate = torch._grouped_mm(xs, w_gate, offs=offs)
         up = torch._grouped_mm(xs, w_up, offs=offs)
         ys = torch._grouped_mm(F.silu(gate) * up, w_down, offs=offs)
-        if sp is not None and x.is_cuda and x.dtype == torch.bfloat16:
-            sp.count("kernels", 3 * _GROUPED_MM_KERNELS + 2)
+        if shared is not None:
+            s_gate, s_up, s_down = shared
+            common = (F.silu(xf @ s_gate) * (xf @ s_up)) @ s_down
+        if sp is not None:
+            sp.count("shared", 0 if shared is None else n)
+            if shared is None and x.is_cuda and x.dtype == torch.bfloat16:
+                sp.count("kernels", 3 * _GROUPED_MM_KERNELS + 2)
     with rpcz.trace("moe", "combine", mark=x):
         if mine < e:  # rows past the last offset are left unwritten
             ys = ys.masked_fill((key == mine)[:, None], 0)
-        scale = weights.reshape(-1)[order]
+        pair_weights = weights.reshape(-1)[order]
         out = torch.zeros((n, h), dtype=torch.float32, device=x.device) \
-            .index_add_(0, rows, ys * scale[:, None])
+            if shared is None else common.float()
+        out = out.index_add_(0, rows, ys * pair_weights[:, None])
         out = pf.reduce_from(out, group).to(x.dtype)
     return out.reshape(b, t, h)

@@ -20,7 +20,15 @@ is fatal when it fails:
    dk and dv through autograd against the plain backward, the log-sum-exp
    the forward keeps against the plain forward's, one forward and one
    backward counted, the backward timed in turns with SDPA's backward, its
-   bound and the plain version's time;
+   bound and the plain version's time; then K1 at latent attention's head
+   dims (DeepSeek-V2-Lite: Hq = Hkv = 16, q/k 192, v 128, scale
+   ``MLA_SCALE``, causal) at (1, 2048) and (1, 16384): one launch each
+   against the plain version, each element within one bf16 step, timed in
+   turns with SDPA at the same dims and scale at 16384, its bound
+   (2·B·Hq·(192 + 128) a kept pair, or q, k, v and o moved once) and the
+   plain version's time; and at the head dims that train (64, 128) the
+   serving forward and the forward that also writes the log-sum-exp, each
+   through its own entry, the same bits;
 3. the parameter server's two kernels at Llama-3-8B's embedding table
    (128256 x 4096 f32, drawn from a seed as the shard draws it) and
    ``PS_K`` Zipf-skewed ids: the row gather bit-equal to ``index_select``,
@@ -49,7 +57,13 @@ is fatal when it fails:
    (1, 2048) through K1's f32 kernel: a warm-up and ``F32_REPEATS`` timed
    requests, each checked as above with 32 f32 launches in the warm-up,
    the logits against the dense f32 path, and one request under
-   ``torch.profiler`` with 32 f32 attention kernels;
+   ``torch.profiler`` with 32 f32 attention kernels; then DeepSeek-V2-Lite
+   whole (27 layers at its published widths, weights drawn from a seed in
+   bf16) through ``LlamaModel`` with K1: one prompt of ``MLA_SERVE_T``
+   tokens, 27 K1 launches at (192, 128) counted from 0, finite logits,
+   the request's time and peak memory, the logits against the same model
+   through K1's plain version within ``MLA_SERVE_REL`` at the median
+   position, and K1 at the wrong scale outside it;
 6. the tiny config trained at f32 compute, three AdamW steps on the card
    against the same three on the CPU, then a checkpoint saved after step 2
    on the card, restored into a fresh template and stepped: it must give
@@ -218,7 +232,10 @@ processes) included; K1 has one entry a kernel, bf16 ("flash_attention",
 main path "serve"), f32 ("flash_attention_f32", main path "serve_f32")
 and the bf16 backward ("flash_attention_backward", main path "train", its
 row from phase 2's backward check), each with the tiny phase's launches
-("tiny") and phase 7's ("train"). A serving path's launches are those its
+("tiny") and phase 7's ("train"); the bf16 forward at latent attention's
+head dims has a row of its own ("flash_attention_latent", main path
+"mla_serving", phase 5's DeepSeek-V2-Lite request, beside phase 2's
+checked calls, "kernels_latent"). A serving path's launches are those its
 wrapper counted in the warm-up's eager requests and those the profiler
 recorded in the profiled requests, which replay graphs; the timed
 requests' replays are counted by neither.
@@ -280,6 +297,28 @@ BF16_REL, BF16_FLOOR = 2.0 ** -7, 2.0 ** -4
 # against the plain forward's within LSE_ATOL (f32 sums in another order).
 BWD_B, BWD_T, BWD_HQ, BWD_HKV = 2, 2048, 32, 32
 BWD_MAX_REL, BWD_NORM_REL, LSE_ATOL = 1e-2, 2e-3, 1e-5
+# K1 at DeepSeek-V2-Lite's latent attention: 16 heads, q/k head dim 192 (128
+# + 64 rope), v head dim 128, the scores scaled by 192**-0.5 times YaRN's
+# mscale(40, 0.707) squared; at the cell's two lengths' smaller and a
+# short one. Held to the bf16 bound above.
+MLA_HEADS, MLA_DQK, MLA_DV, MLA_SCALE = 16, 192, 128, 0.114721
+MLA_T = (2048, 16384)
+# DeepSeek-V2-Lite served whole, as its config.json gives it (27 layers,
+# hidden 2048, 16 heads, latent 512, q/k 128 + 64 rope, v 128, one dense
+# layer of 10944, then 64 routed experts of 1408 at top 6, unrenormalised,
+# beside 2 shared; YaRN factor 40), weights drawn from a seed in bf16, one
+# prompt of MLA_SERVE_T tokens. Its logits through K1 against the same
+# model through K1's plain version: each position's relative error |a -
+# b| / |b| over the vocabulary, the median over positions within
+# MLA_SERVE_REL. The two round a layer's attention output to bf16 apart by
+# at most one step, and a top-6 choice whose 6th and 7th probabilities lie
+# within that flips at a few positions; a wrong kernel moves every
+# position. The bound must also fail K1 at the default scale D**-0.5 in
+# place of the model's (YaRN's mscale squared left out). On the H100 the
+# median read 0.0334 (0.99 quantile 0.0731) and the wrong scale 0.2157
+# (PERF.md); the bound is about twice the first.
+MLA_SERVE_T = 16384
+MLA_SERVE_REL = 0.08
 # Flash against dense attention over 32 bf16 layers: the two paths round
 # the attention output differently (about one bf16 ulp), and each layer
 # adds its own such step to the residual stream. On the H100 the port gave
@@ -751,6 +790,178 @@ def phase_kernels_backward():
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                 shape=[b, t, hq, hkv, D])
+
+
+def phase_kernels_latent():
+    """K1 at latent attention's head dims against its plain version, timed
+    in turns with SDPA at 16384; then, at the head dims that train, the
+    serving forward against the forward that also writes the log-sum-exp,
+    which its own entry scales. Returns the kernels line's row and the
+    launches the checked calls counted."""
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    h, row = MLA_HEADS, None
+    zero_counts(fa.launches)
+    checked = 0
+    for t in MLA_T:
+        q, k, v = (torch.randn((1, t, h, d), generator=gen, device="cuda")
+                   .bfloat16() for d in (MLA_DQK, MLA_DQK, MLA_DV))
+        before = dict(fa.launches)
+        got = fa.flash_attention(q, k, v, scale=MLA_SCALE)
+        torch.cuda.synchronize()
+        name = f"bf16 causal=True B=1 T={t} H={h} Dqk={MLA_DQK} Dv={MLA_DV}"
+        check(fa.launches == {**before, "bf16": before["bf16"] + 1},
+              f"flash_attention {name}: launches {fa.launches} after "
+              f"{before}, want one")
+        checked += fa.launches["bf16"] - before["bf16"]
+        want = fa.flash_attention_reference(q, k, v, scale=MLA_SCALE)
+        err, of_tol = kernel_error(got, want)
+        check(of_tol <= 1.0, f"flash_attention {name}: max |err| {err}, "
+              f"worst element at {of_tol} of its bound")
+        pairs = t * (t + 1) // 2
+        ops = 2 * h * (MLA_DQK + MLA_DV) * pairs
+        nbytes = 2 * 2 * t * h * (MLA_DQK + MLA_DV)
+        bound_ms = 1e3 * max(ops / PEAK_FLOPS[torch.bfloat16],
+                             nbytes / PEAK_BYTES_PER_S)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        turns = in_turns(f"flash_attention {name}", {
+            "library": lambda: torch.nn.functional
+            .scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                          scale=MLA_SCALE),
+            "kernel": lambda: fa.flash_attention(q, k, v, scale=MLA_SCALE)},
+            10)
+        ms, library_ms = turns["kernel"][0], turns["library"][0]
+        plain_ms, _ = time_ms(lambda: fa.flash_attention_reference(
+            q, k, v, scale=MLA_SCALE), 1, warmup=1)
+        print(f"flash_attention {name}: max_abs_err={err:.3e} "
+              f"err_of_tolerance={of_tol:.4f} ms={ms:.4f} "
+              f"tflops={ops / ms / 1e9:.1f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"(operations) of_bound={bound_ms / ms:.4f}")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by="operations",
+                   library_ms=library_ms, shape=[1, t, h, h, MLA_DQK,
+                                                 MLA_DV])
+    # The serving body is templated over v's head dim and takes its scale
+    # from the caller; the forward that trains has an entry of its own.
+    for d in fa.BACKWARD_HEAD_DIMS:
+        q, k, v = (torch.randn((2, 512, hh, d), generator=gen, device="cuda")
+                   .bfloat16() for hh in (HQ, HKV, HKV))
+        serve = fa._launch(q, k, v, True)
+        train, _ = fa._launch(q, k, v, True, keep_lse=True)
+        check(torch.equal(serve, train),
+              f"flash_attention D={d}: the serving forward and the forward "
+              f"that trains differ")
+    print(f"flash_attention: at D in {fa.BACKWARD_HEAD_DIMS} the serving "
+          f"forward and the forward that trains give the same bits")
+    return row, checked
+
+
+def deepseek_v2_lite():
+    """DeepSeek-V2-Lite's ``LlamaConfig`` at its published widths, all 27
+    layers, bf16 weights and compute."""
+    from brpc_tpu_torch.models import llama, mla
+
+    return llama.LlamaConfig(
+        vocab_size=102400, hidden=2048, n_layers=27, n_heads=16,
+        n_kv_heads=16, head_dim=MLA_DQK, intermediate=10944,
+        rope_theta=10000.0, norm_eps=1e-6, dtype=torch.bfloat16,
+        param_dtype=torch.bfloat16, n_experts=64, experts_per_token=6,
+        first_dense_layers=1, expert_intermediate=1408, n_shared_experts=2,
+        norm_topk_prob=False, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=MLA_DV, rope_scaling=mla.Yarn(
+            factor=40.0, original_max_position_embeddings=4096,
+            beta_fast=32.0, beta_slow=1.0, mscale=0.707,
+            mscale_all_dim=0.707))
+
+
+def position_errors(got, want):
+    """Each position's |got - want| / |want| over the vocabulary, sorted."""
+    diff = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    return diff.flatten().sort().values
+
+
+def phase_serve_mla():
+    """DeepSeek-V2-Lite whole through ``LlamaModel`` with K1: one (192,
+    128) launch a layer, the logits against K1's plain version, and K1 at
+    the wrong scale failing the same bound. Returns K1's launches by
+    kernel."""
+    from brpc_tpu_torch.models import llama, mla
+    from brpc_tpu_torch.ops import flash_attention as fa
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = deepseek_v2_lite()
+    check(abs(mla.softmax_scale(cfg) - MLA_SCALE) < 1e-6,
+          f"V2-Lite's scale {mla.softmax_scale(cfg)} is not {MLA_SCALE}")
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in
+                   (params["embed"], params["final_norm"], params["lm_head"],
+                    *params["layers"].values()))
+    print(f"serve mla: DeepSeek-V2-Lite, {cfg.n_layers} layers, {n_params} "
+          f"params ({n_params * 2 / 1e9:.3f} GB bf16), init "
+          f"{time.perf_counter() - t0:.3f} s")
+    # the three share the weights: LlamaModel wraps bf16 weights uncopied
+    model = llama.LlamaModel(cfg, params, attn_fn=fa.flash_attention)
+    plain = llama.LlamaModel(cfg, params,
+                             attn_fn=fa.flash_attention_reference)
+    wrong = llama.LlamaModel(
+        cfg, params, attn_fn=lambda q, k, v, scale: fa.flash_attention(
+            q, k, v))
+    del params
+    tokens = torch.randint(0, cfg.vocab_size, (1, MLA_SERVE_T),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1), device="cuda")
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fa.launches)
+        got = model(tokens)
+        torch.cuda.synchronize()
+        launches = flash_counts()
+        check(launches == {"flash_attention": cfg.n_layers,
+                           "flash_attention_f32": 0,
+                           "flash_attention_backward": 0},
+              f"serve mla: {launches} launches in a request, want "
+              f"{cfg.n_layers} bf16")
+        check(got.shape == (1, MLA_SERVE_T, cfg.vocab_size)
+              and got.dtype == torch.float32
+              and bool(torch.isfinite(got).all()),
+              f"serve mla: logits {got.dtype} {tuple(got.shape)} not "
+              f"finite f32 of the prompt's shape")
+        peak = torch.cuda.max_memory_allocated()
+        del got
+        t0 = time.perf_counter()
+        got = model(tokens)
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+        want = plain(tokens)
+        errors = position_errors(got, want)
+        del got
+        fault = position_errors(wrong(tokens), want)
+        del want
+    at = {q: errors[math.ceil(q * len(errors)) - 1].item()
+          for q in (0.5, 0.9, 0.99, 1.0)}
+    fault_median = fault[math.ceil(0.5 * len(fault)) - 1].item()
+    print(f"serve mla: B=1 T={MLA_SERVE_T}: {launches['flash_attention']} "
+          f"K1 launches, request_ms={request_s * 1e3:.3f} tokens_per_s="
+          f"{MLA_SERVE_T / request_s:.1f} peak_mem_gb={peak / 1e9:.3f}; "
+          f"K1 against its plain version, relative error by position at "
+          f"quantiles {at} (median bound {MLA_SERVE_REL}); K1 at D**-0.5 "
+          f"in place of the model's scale: median {fault_median:.4g}")
+    check(at[0.5] <= MLA_SERVE_REL,
+          f"serve mla: median relative error {at[0.5]} > {MLA_SERVE_REL}")
+    check(fault_median > MLA_SERVE_REL,
+          f"serve mla: K1 at the wrong scale reads {fault_median}, within "
+          f"the bound {MLA_SERVE_REL}")
+    del model, plain, wrong
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_tiny():
@@ -3340,6 +3551,7 @@ def main() -> int:
     native_build = start_native_device_build()
     rows = phase_kernels()
     backward_row = phase_kernels_backward()
+    latent_row, latent_launches = phase_kernels_latent()
     t0 = time.perf_counter()
     table = seeded_table()
     print(f"ps: seeded table drawn on the host in "
@@ -3347,6 +3559,7 @@ def main() -> int:
     ps_rows = phase_ps_kernels(table)
     tiny = phase_tiny()
     served = phase_serve()
+    mla_served = phase_serve_mla()
     phase_tiny_train()
     k1_loss, trained = phase_train()
     ps_launches = phase_ps_serve(table)
@@ -3391,6 +3604,16 @@ def main() -> int:
         "launches_by_path": {p: counts["flash_attention_backward"]
                              for p, counts in k1_paths.items()},
         **backward_row}, {
+        "name": "flash_attention_latent", "route": "cuda",
+        "source": "brpc_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "none: the reference's kernel takes one head dim; "
+                    "DeepSeek-V2's latent attention has q/k 192, v 128",
+        "design": "the bf16 forward's wgmma+tma body at q/k head dim 192 "
+                  "and v/o head dim 128, scale given",
+        "launches": mla_served["flash_attention"],
+        "launches_by_path": {"kernels_latent": latent_launches,
+                             "mla_serving": mla_served["flash_attention"]},
+        **latent_row}, {
         "name": "gather_rows", "route": "cuda", "source": source,
         "replaces": "cpp/device/pjrt_executable.cc:100",
         "design": "StableHLO device program, not Pallas; a block per id",

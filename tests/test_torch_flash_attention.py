@@ -89,6 +89,47 @@ def test_cpu_runs_plain_version_without_launch():
     assert fa.launches == before
 
 
+def _mla_inputs(seed, b=2, t=64, hq=4, hkv=4, dqk=192, dv=128):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((b, t, h, d), generator=g)
+            for h, d in ((hq, dqk), (hkv, dqk), (hkv, dv))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("scale", [None, 0.114721])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2)])
+def test_plain_version_at_its_own_v_head_dim_is_dense_attention(
+        causal, scale, hq, hkv):
+    """At q/k head dim 192 and v head dim 128 (latent attention's), with
+    the default or a given scale, the plain version is dense attention
+    within the f32 bound (the same function, summed in another order)."""
+    q, k, v = _mla_inputs(9, hq=hq, hkv=hkv)
+    got = fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                             block_q=32, block_k=32)
+    want = llama.attention(q, k, v, causal=causal, scale=scale)
+    assert got.shape == (2, 64, hq * 128)
+    assert (got - want).abs().max() <= 2e-5
+    if scale is None:
+        assert torch.equal(got, fa.flash_attention(
+            q, k, v, causal=causal, scale=192 ** -0.5, block_q=32,
+            block_k=32))
+
+
+def test_plain_backward_at_its_own_v_head_dim_and_scale():
+    """The plain backward with v's head dim and a scale of its own against
+    autograd through dense attention, on the CPU."""
+    q, k, v = (x.requires_grad_(True) for x in _mla_inputs(10, t=32))
+    grad = torch.randn((2, 32, 4 * 128),
+                       generator=torch.Generator().manual_seed(11))
+    got = torch.autograd.grad(fa.flash_attention(q, k, v, scale=0.3,
+                                                 block_q=16, block_k=16),
+                              (q, k, v), grad)
+    want = torch.autograd.grad(llama.attention(q, k, v, scale=0.3),
+                               (q, k, v), grad)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-4
+
+
 def test_reference_kernel_cannot_be_differentiated():
     """The reference kernel is forward only: ``jax.grad`` through it fails."""
     q, k, v = (jnp.asarray(a) for a in _inputs(8, t=64))
@@ -285,7 +326,20 @@ _REJECTED = [
     ("seq mismatch", lambda q, k, v: (q, k[:, :32].contiguous(),
                                       v[:, :32].contiguous()), ValueError),
     ("three dims", lambda q, k, v: (q[0], k[0], v[0]), ValueError),
+    ("v head dim of its own at 32", lambda q, k, v: (
+        q, k, v[..., :16].contiguous()), ValueError),
+    ("k and v heads differ", lambda q, k, v: (q, k, v[:, :, :1].contiguous()),
+     ValueError),
 ]
+# Pairs of (q/k, v) head dims the kernels do not take.
+_REJECTED_PAIRS = [(192, 64), (128, 64), (192, 192), (96, 128)]
+
+
+@pytest.mark.parametrize("dqk,dv", _REJECTED_PAIRS)
+def test_rejects_head_dim_pairs_the_kernels_do_not_take(dqk, dv):
+    q, k, v = _mla_inputs(12, t=32, dqk=dqk, dv=dv)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, k, v)
 
 
 @pytest.mark.parametrize("case,args,exc", _REJECTED)
@@ -528,6 +582,71 @@ def test_kernel_matches_plain_on_card(cuda_device, shape, dtype, causal):
     worst = (err / bound).max().item()
     assert worst <= 1.0, (f"max |err| {err.max().item()}, worst element at "
                           f"{worst} of its bound")
+
+
+# (B, T, Hq, Hkv): DeepSeek-V2-Lite's heads at 2k and at the cell's 16k,
+# GQA over several query tiles, and a ragged T under 128.
+_CARD_MLA_SHAPES = [(1, 2048, 16, 16), (1, 16384, 16, 16), (2, 640, 16, 4),
+                    (1, 77, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _CARD_MLA_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_latent_attention_head_dims_match_plain_on_card(cuda_device, shape,
+                                                        causal):
+    """bf16 at q/k head dim 192 and v head dim 128, scaled by V2-Lite's
+    0.114721: one launch, each element within one bf16 step of the plain
+    value (as at the other head dims)."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in f32
+    b, t, hq, hkv = shape
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v = (torch.randn((b, t, h, d), generator=g, device=cuda_device)
+               .bfloat16() for h, d in ((hq, 192), (hkv, 192), (hkv, 128)))
+    before = dict(fa.launches)
+    got = fa.flash_attention(q, k, v, causal=causal, scale=0.114721)
+    torch.cuda.synchronize()
+    assert fa.launches == {**before, "bf16": before["bf16"] + 1}
+    want = fa.flash_attention_reference(q, k, v, causal=causal,
+                                        scale=0.114721)
+    assert got.shape == (b, t, hq * 128)
+    err = (got.float() - want.float()).abs()
+    bound = 2.0 ** -7 * want.float().abs().clamp_min(2.0 ** -4)
+    assert (err / bound).max().item() <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [None, 0.1])
+@pytest.mark.parametrize("shape", [s for s in _CARD_SHAPES
+                                   if s[4] in fa.BACKWARD_HEAD_DIMS])
+def test_serving_and_training_forwards_scale_alike_on_card(cuda_device, shape,
+                                                          scale):
+    """The serving entry and the entry that also writes the log-sum-exp
+    are handed one scale (``softmax_scale``: D**-0.5 by default) and give
+    the same bits at it, at the default and at another; the log-sum-exp is
+    the plain version's at that scale within 1e-5."""
+    b, t, hq, hkv, d = shape
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    q, k, v = (torch.randn((b, t, h, d), generator=g, device=cuda_device)
+               .bfloat16() for h in (hq, hkv, hkv))
+    serve = fa._launch(q, k, v, True, scale=scale)
+    train, lse = fa._launch(q, k, v, True, keep_lse=True, scale=scale)
+    assert torch.equal(serve, train)
+    _, want = fa._reference(q, k, v, True, min(128, t), scale)
+    assert (lse[..., :t] - want).abs().max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_f32_and_training_refuse_latent_attention_on_card(cuda_device):
+    q, k, v = (torch.randn((1, 128, 4, d), device=cuda_device)
+               for d in (192, 192, 128))
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention(q, k, v)
+    q, k, v = (x.bfloat16().requires_grad_(True) for x in (q, k, v))
+    out = fa.flash_attention(q, k, v, scale=0.1)
+    assert not fa.trains(q)
+    with pytest.raises(RuntimeError, match="no .* backward"):
+        out.float().sum().backward()
 
 
 @pytest.mark.cuda

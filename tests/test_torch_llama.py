@@ -210,8 +210,15 @@ def test_llama3_8b_config_matches_reference():
     want = dataclasses.asdict(ref.LlamaConfig.llama3_8b())
     assert got.pop("dtype") == torch.bfloat16
     assert got.pop("param_dtype") == torch.float32
-    # the port's expert fields, which the reference lacks: a dense model
-    assert (got.pop("n_experts"), got.pop("experts_per_token")) == (0, 0)
+    # the port's expert and latent-attention fields, which the reference
+    # lacks: a dense model with grouped-query attention
+    port_only = {"n_experts": 0, "experts_per_token": 0,
+                 "first_dense_layers": 0, "expert_intermediate": 0,
+                 "n_shared_experts": 0, "norm_topk_prob": True,
+                 "kv_lora_rank": 0,
+                 "qk_nope_head_dim": 0, "qk_rope_head_dim": 0,
+                 "v_head_dim": 0, "rope_scaling": None}
+    assert {name: got.pop(name) for name in port_only} == port_only
     want.pop("dtype"), want.pop("param_dtype")
     assert got == want
 

@@ -14,7 +14,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from brpc_tpu_torch import obs, optim
-from brpc_tpu_torch.models import llama
+from brpc_tpu_torch.models import llama, mla
 from brpc_tpu_torch.obs import rpcz
 from brpc_tpu_torch.ops import flash_attention as fa
 
@@ -148,6 +148,54 @@ def test_train_forward_counts_the_layers_whose_attention_ran_k1(
                               if k1 else {})
     assert all(s.counts == {} for s in spans if s is not forward)
     step(params, tokens)  # untraced: no span, so nothing to count on
+
+
+def _latent_expert_model(shared=2):
+    """A tiny DeepSeek-V2 config (latent attention, one dense layer, then
+    two expert layers) and its params."""
+    cfg = llama.LlamaConfig(
+        vocab_size=256, hidden=64, n_layers=3, n_heads=2, n_kv_heads=2,
+        head_dim=24, intermediate=96, n_experts=4, experts_per_token=2,
+        first_dense_layers=1, expert_intermediate=32,
+        n_shared_experts=shared, norm_topk_prob=False, kv_lora_rank=32,
+        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16,
+        rope_scaling=mla.Yarn(40.0, 4096, mscale=0.707,
+                              mscale_all_dim=0.707))
+    g = torch.Generator().manual_seed(3)
+    return cfg, llama.init_params(cfg, generator=g, device="cpu")
+
+
+def test_latent_attention_records_one_latent_span_a_layer_counting_rows():
+    """``mla.latent`` opens once a layer, a child of ``llama.forward``,
+    counting the rows (B·T) it projected; each expert layer's
+    ``moe.experts`` counts the rows its shared experts ran."""
+    cfg, params = _latent_expert_model()
+    tokens = torch.randint(0, 256, (2, 16),
+                           generator=torch.Generator().manual_seed(4))
+    model = llama.LlamaModel(cfg, params)
+    _, spans, _, _ = _traced(lambda: model(tokens))
+    (forward,) = [s for s in spans if s.name == "llama.forward"]
+    latent = [s for s in spans if s.name == "mla.latent"]
+    assert len(latent) == cfg.n_layers
+    assert all(s.counts == {mla.ROWS_COUNTER: 32} for s in latent)
+    assert all(s.parent_id == forward.span_id for s in latent)
+    experts = [s for s in spans if s.name == "moe.experts"]
+    assert len(experts) == cfg.n_layers - cfg.first_dense_layers
+    assert all(s.counts == {"shared": 32} for s in experts)
+
+
+def test_an_expert_layer_without_shared_experts_counts_none():
+    cfg, params = _latent_expert_model(shared=0)
+    cfg = dataclasses.replace(cfg, first_dense_layers=0)
+    params = llama.init_params(cfg, generator=torch.Generator()
+                               .manual_seed(5), device="cpu")
+    tokens = torch.randint(0, 256, (1, 8),
+                           generator=torch.Generator().manual_seed(6))
+    _, spans, _, _ = _traced(lambda: llama.forward(params, tokens, cfg))
+    experts = [s for s in spans if s.name == "moe.experts"]
+    assert len(experts) == cfg.n_layers
+    # on the CPU the grouped products count no kernels either
+    assert all(s.counts == {"shared": 0} for s in experts)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
